@@ -1,0 +1,136 @@
+"""Build and load the port's CUDA kernels.
+
+csrc/*.cu compile with nvcc into one shared library with a plain C
+interface (no PyTorch headers, so a build takes seconds), loaded with
+ctypes. Each C entry point takes its CUDA stream and returns
+cudaGetLastError() right after the launch. The library lives in
+build/fem_tpu_torch/ at the repository root and is rebuilt when any
+source is newer (the pattern of fem_tpu/native/build.py). A compile error
+raises with nvcc's stderr; nothing is taken from outside the checkout.
+
+`launches` counts kernel launches per kernel; each wrapper adds one where
+it launches its kernel, so a run can show that its main path went
+through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import os
+import shutil
+import subprocess
+import threading
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(_HERE, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_HERE), "build", "fem_tpu_torch")
+LIB_PATH = os.path.join(BUILD_DIR, "libfem_tpu_torch_kernels.so")
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+]
+
+launches = {"banded_myers": 0, "filter_tail": 0}
+
+_lock = threading.Lock()
+_lib = None
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_I64 = ctypes.c_int64
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+def _stale(target: str, srcs: list[str]) -> bool:
+    if not os.path.exists(target):
+        return True
+    t = os.path.getmtime(target)
+    return any(os.path.getmtime(s) > t for s in srcs)
+
+
+def _compile(cmd: list[str], target: str) -> None:
+    """Run a compiler writing `target` via a per-process temp name, so
+    concurrent builds never load a half-written library."""
+    os.makedirs(os.path.dirname(target), exist_ok=True)
+    tmp = f"{target}.{os.getpid()}.tmp"
+    proc = subprocess.run([*cmd, "-o", tmp], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"{os.path.basename(cmd[0])} failed (exit {proc.returncode}):\n"
+            f"{' '.join(cmd)}\n{proc.stderr}"
+        )
+    os.replace(tmp, target)
+
+
+def nvcc_path() -> str:
+    for cand in (
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+        shutil.which("nvcc"),
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+
+
+def build(force: bool = False) -> str:
+    """Compile csrc/*.cu for sm_90a if the library is missing or stale."""
+    srcs = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+    hdrs = sorted(glob.glob(os.path.join(CSRC, "*.h")))
+    if force or _stale(LIB_PATH, srcs + hdrs):
+        _compile([nvcc_path(), *NVCC_FLAGS, *srcs], LIB_PATH)
+    return LIB_PATH
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(build())
+            lib.fem_banded_myers.restype = _I
+            lib.fem_banded_myers.argtypes = [
+                _P, _I64, _P, _I,  # ref, ref_len, ref_offsets, num_seqs
+                _P, _P, _P,  # v_sid, v_pos, v_lane
+                _P, _P, _I, _I, _I,  # both, lens, nb, lmax, e
+                _I, _P, _P, _P,  # num_slots, ed, end, stream
+            ]
+            lib.fem_filter_tail.restype = _I
+            lib.fem_filter_tail.argtypes = [
+                _P, _P, _I, _I, _I, _I, _I, _I,  # sid, diag, nb, G, cap, cc, e, a
+                _P, _P, _P, _P,  # out_sid, out_pos, overflow, stream
+            ]
+            lib.fem_cuda_error_string.restype = ctypes.c_char_p
+            lib.fem_cuda_error_string.argtypes = [_I]
+            _lib = lib
+        return _lib
+
+
+def check_launch(rc: int, name: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if rc != 0:
+        msg = library().fem_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc} ({msg})")
+
+
+def build_host_check(out_dir: str) -> ctypes.CDLL:
+    """g++ build of csrc/host_check.cpp: the kernels' per-lane header code
+    compiled for the host, for the CPU tests. Raises on a compile error."""
+    target = os.path.join(out_dir, "libfem_tpu_torch_host_check.so")
+    _compile(
+        ["g++", "-O2", "-std=c++17", "-Wall", "-shared", "-fPIC",
+         os.path.join(CSRC, "host_check.cpp")],
+        target,
+    )
+    lib = ctypes.CDLL(target)
+    lib.fem_host_filter_tail.restype = None
+    lib.fem_host_filter_tail.argtypes = [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P]
+    lib.fem_host_banded_myers.restype = None
+    lib.fem_host_banded_myers.argtypes = [
+        _P, _I64, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P,
+    ]
+    return lib

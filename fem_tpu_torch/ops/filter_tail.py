@@ -1,0 +1,119 @@
+"""The candidate filter's tail: sort + pigeonhole vote + greedy dedup fold.
+
+Reference semantics (src/filter.c:80-144): per read-strand lane and seed
+group, the group's (sid, diag) pairs are sorted, the additional-q-gram
+vote keeps a pair only when its a-th successor has the same sid and lies
+within e (src/filter.c:118-131), and the survivors merge with the carried
+candidate list through the greedy +-e dedup, which can evict earlier
+winners (src/filter.c:45-78,210-212). The first cap_cand kept candidates
+carry to the next group; overflow marks a lane that kept more.
+
+`filter_tail` runs the CUDA kernel (csrc/filter_tail.cu) on a CUDA tensor
+and the plain torch version beside it on a CPU tensor. Layout as
+fem_tpu.ops.filter_tail_pallas: (NB, G, CAP) int32 in, invalid slots at
+(SENTINEL_SID, BIG); (NB, CC) int32 candidate lists out, ascending, with
+the sentinel in the tail slots, plus an (NB,) bool overflow.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from fem_tpu_torch import kernels
+from fem_tpu_torch.ops.types import BIG, SENTINEL_SID
+
+MAX_SLAB = 512  # the kernel's bound on cap_cand + cap_occ
+_M32 = 0xFFFFFFFF
+_SENT_KEY = (SENTINEL_SID << 32) | BIG
+
+
+def filter_tail_plain(
+    sid: torch.Tensor, diag: torch.Tensor, cap_cand: int, e: int, a: int
+):
+    """Plain torch version; keys pack (sid, diag) as sid << 32 | diag."""
+    NB, G, CAP = sid.shape
+    dev = sid.device
+    keys = (sid.long() << 32) | diag.long()
+    cand = torch.full((NB, cap_cand), _SENT_KEY, dtype=torch.int64, device=dev)
+    overflow = torch.zeros(NB, dtype=torch.bool, device=dev)
+    for g in range(G):
+        s = torch.sort(keys[:, g], dim=1).values
+        if a > 0:
+            succ = torch.cat(
+                [s[:, a:], torch.full((NB, a), _SENT_KEY, dtype=torch.int64, device=dev)],
+                dim=1,
+            )
+            voted = (
+                ((s >> 32) != SENTINEL_SID)
+                & ((succ >> 32) == (s >> 32))
+                & ((succ & _M32) <= (s & _M32) + e)
+            )
+            s = torch.where(voted, s, _SENT_KEY)
+        merged = torch.sort(torch.cat([cand, s], dim=1), dim=1).values
+        last_s = torch.full((NB,), -1, dtype=torch.int64, device=dev)
+        last_d = torch.zeros(NB, dtype=torch.int64, device=dev)
+        n_keep = torch.zeros(NB, dtype=torch.int64, device=dev)
+        kept = torch.full_like(merged, _SENT_KEY)
+        for i in range(merged.shape[1]):
+            si, di = merged[:, i] >> 32, merged[:, i] & _M32
+            keep = (si != SENTINEL_SID) & (
+                (si > last_s) | ((si == last_s) & (di > last_d + e))
+            )
+            last_s = torch.where(keep, si, last_s)
+            last_d = torch.where(keep, di, last_d)
+            n_keep += keep
+            kept[:, i] = torch.where(keep, merged[:, i], _SENT_KEY)
+        overflow |= n_keep > cap_cand
+        cand = torch.sort(kept, dim=1).values[:, :cap_cand]
+    return (cand >> 32).int(), (cand & _M32).int(), overflow
+
+
+def _filter_tail_cuda(sid, diag, cap_cand: int, e: int, a: int):
+    NB, G, CAP = sid.shape
+    if cap_cand + CAP > MAX_SLAB:
+        raise ValueError(
+            f"filter_tail kernel takes cap_cand + cap_occ <= {MAX_SLAB}, "
+            f"got {cap_cand} + {CAP}"
+        )
+    out_sid = torch.empty((NB, cap_cand), dtype=torch.int32, device=sid.device)
+    out_pos = torch.empty_like(out_sid)
+    overflow = torch.empty(NB, dtype=torch.bool, device=sid.device)
+    if NB == 0:
+        return out_sid, out_pos, overflow
+    lib = kernels.library()
+    rc = lib.fem_filter_tail(
+        sid.data_ptr(), diag.data_ptr(), NB, G, CAP, cap_cand, e, a,
+        out_sid.data_ptr(), out_pos.data_ptr(), overflow.data_ptr(),
+        torch.cuda.current_stream(sid.device).cuda_stream,
+    )
+    kernels.check_launch(rc, "filter_tail")
+    kernels.launches["filter_tail"] += 1
+    return out_sid, out_pos, overflow
+
+
+def filter_tail(
+    sid: torch.Tensor,  # (NB, G, CAP) int32, invalid = SENTINEL_SID
+    diag: torch.Tensor,  # (NB, G, CAP) int32 in [0, 2^30], invalid = BIG
+    cap_cand: int,
+    error_threshold: int,
+    num_additional_qgrams: int,
+):
+    """Returns (cand_sid (NB, CC), cand_pos (NB, CC), overflow (NB,))."""
+    if sid.dtype != torch.int32 or diag.dtype != torch.int32:
+        raise TypeError("filter_tail takes int32 sid and diag")
+    if sid.dim() != 3 or sid.shape != diag.shape:
+        raise ValueError(f"filter_tail takes two (NB, G, CAP) slabs, got "
+                         f"{tuple(sid.shape)} and {tuple(diag.shape)}")
+    if sid.device != diag.device:
+        raise ValueError("sid and diag lie on different devices")
+    if sid.device.type == "cpu":
+        return filter_tail_plain(
+            sid, diag, cap_cand, error_threshold, num_additional_qgrams
+        )
+    if sid.device.type != "cuda":
+        raise ValueError(f"filter_tail runs on cpu or cuda, not {sid.device}")
+    if not (sid.is_contiguous() and diag.is_contiguous()):
+        raise ValueError("filter_tail takes contiguous slabs")
+    return _filter_tail_cuda(
+        sid, diag, cap_cand, error_threshold, num_additional_qgrams
+    )

@@ -1,0 +1,137 @@
+"""Device-side data structures of the port.
+
+Layout on a GPU (the TPU layouts of fem_tpu/ops/types.py are gather
+workarounds and are not carried over):
+  * occurrences as one flat int64 key ``sid << 32 | pos`` in CSR order —
+    exactly the index file's occurrence table (src/index.h:22-28);
+  * the CSR offsets (4^k + 1) and the 4^k frequency table, int32;
+  * the reference as one flat uint8 code array with the 256-base sentinel
+    gaps of fastx.read_fasta between and after the chromosomes, so a
+    banded window near a boundary reads sentinels, never a neighbour.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from fem_tpu.config import FemArgs
+from fem_tpu.index.storage import FemIndex
+from fem_tpu.io.fastx import Reference
+
+# Sentinel chromosome id of invalid (sid, pos) slots: sorts after every
+# real chromosome and never equals one (same value as fem_tpu).
+SENTINEL_SID = 2**30
+# Invalid diagonal / position in the filter-tail slabs.
+BIG = 2**30
+
+
+@dataclasses.dataclass
+class DeviceIndex:
+    occ: torch.Tensor  # (N,) int64 sid << 32 | pos
+    lookup: torch.Tensor  # (4^k + 1,) int32 CSR offsets into occ
+    freq_table: torch.Tensor  # (4^k,) int32 lookup[h+1] - lookup[h]
+    ref_flat: torch.Tensor  # (T,) uint8 codes with sentinel gaps
+    ref_offsets: torch.Tensor  # (S,) int64 chromosome starts in ref_flat
+    ref_lengths: torch.Tensor  # (S,) int32 chromosome lengths
+    num_occurrences: int
+
+    def nbytes(self) -> int:
+        return sum(
+            t.numel() * t.element_size()
+            for t in (self.occ, self.lookup, self.freq_table, self.ref_flat,
+                      self.ref_offsets, self.ref_lengths)
+        )
+
+
+def _device_index(occ, lookup, ref_flat, ref_offsets, ref_lengths, device):
+    lookup = np.asarray(lookup).astype(np.int32)
+    as_t = lambda x: torch.tensor(np.ascontiguousarray(x), device=device)
+    return DeviceIndex(
+        occ=as_t(np.asarray(occ).view(np.int64)),
+        lookup=as_t(lookup),
+        freq_table=as_t(np.diff(lookup)),
+        ref_flat=as_t(np.asarray(ref_flat, np.uint8)),
+        ref_offsets=as_t(np.asarray(ref_offsets).astype(np.int64)),
+        ref_lengths=as_t(np.asarray(ref_lengths).astype(np.int32)),
+        num_occurrences=int(np.asarray(occ).shape[0]),
+    )
+
+
+def device_index_from_host(
+    index: FemIndex, reference: Reference, device: torch.device | str
+) -> DeviceIndex:
+    return _device_index(
+        index.occurrences.astype(np.uint64), index.lookup,
+        reference.flat_codes, reference.offsets, reference.lengths, device,
+    )
+
+
+def device_index_from_jax(arrays: dict, device: torch.device | str) -> DeviceIndex:
+    """The port's index from the fields of a fem_tpu DeviceIndex, given as
+    numpy arrays (``occ_rows``, ``ref_rows``, ``csr_rows``, ``ref_offsets``,
+    ``ref_lengths``, ``num_occurrences``): the state carried across.
+
+    ``occ_rows`` holds (sid, pos) u32 pairs in CSR order; ``ref_rows`` holds
+    the flat codes padded to 64-byte rows, cut here back to the flat layout
+    (the trailing gap equals the leading one, ``ref_offsets[0]``)."""
+    n = int(arrays["num_occurrences"])
+    pairs = np.asarray(arrays["occ_rows"]).reshape(-1, 2)[:n].astype(np.uint64)
+    occ = (pairs[:, 0] << np.uint64(32)) | pairs[:, 1]
+    csr = np.asarray(arrays["csr_rows"])
+    lookup = np.concatenate([csr[:, 0], csr[-1:, 1]])
+    offsets = np.asarray(arrays["ref_offsets"]).astype(np.int64)
+    lengths = np.asarray(arrays["ref_lengths"]).astype(np.int64)
+    total = int(offsets[-1] + lengths[-1] + offsets[0])
+    flat = np.asarray(arrays["ref_rows"]).view(np.uint8).reshape(-1)[:total]
+    return _device_index(occ, lookup, flat, offsets, lengths, device)
+
+
+@dataclasses.dataclass(frozen=True)
+class FilterParams:
+    """Static parameters of the mapping step (fields and properties as in
+    fem_tpu.ops.types.FilterParams)."""
+
+    kmer_size: int
+    step_size: int
+    error_threshold: int
+    num_additional_qgrams: int
+    max_read_length: int  # Lmax: padded read length
+    cap_occ: int = 512  # max gathered occurrences per (read, strand, group)
+    cap_cand: int = 512  # max candidates carried per (read, strand)
+    cap_vote: int = 512  # width of fem_tpu's compacted vote slab; the port's
+    # filter-tail kernel sorts the whole cap_occ slab and never reads it
+
+    @classmethod
+    def from_args(cls, args: FemArgs, max_read_length: int, **caps) -> "FilterParams":
+        return cls(
+            kmer_size=args.kmer_size,
+            step_size=args.step_size,
+            error_threshold=args.error_threshold,
+            num_additional_qgrams=args.num_additional_qgrams,
+            max_read_length=max_read_length,
+            **caps,
+        )
+
+    @property
+    def num_qgrams(self) -> int:
+        return self.error_threshold + 1 + self.num_additional_qgrams
+
+    @property
+    def seed_span(self) -> int:
+        return -(-self.kmer_size // self.step_size)
+
+    @property
+    def max_num_seeds(self) -> int:
+        return self.max_read_length - self.kmer_size + 1
+
+    @property
+    def max_group_size(self) -> int:
+        return -(-self.max_num_seeds // self.step_size)
+
+    @property
+    def max_dp_cols(self) -> int:
+        """Upper bound on the q-gram DP column count over all lanes."""
+        return max(self.max_group_size - self.num_qgrams * self.seed_span + 2, 2)

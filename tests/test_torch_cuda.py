@@ -1,0 +1,139 @@
+"""The port's CUDA kernels and engine on the card.
+
+Every test here needs a CUDA device and skips without one. The file
+imports no JAX, so it runs where only the port is installed:
+
+    FEM_TPU_TEST_TPU=1 python -m pytest tests/test_torch_cuda.py -q
+
+(FEM_TPU_TEST_TPU=1 keeps tests/conftest.py from importing JAX.) Each
+kernel is held against its plain torch version on the same CUDA tensors;
+all outputs are integers and must be exactly equal.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from fem_tpu import sim
+from fem_tpu.core.encoding import encode
+from fem_tpu.golden.model import GoldenMapper
+from fem_tpu.io.fastx import ReadBatch
+from fem_tpu_torch import kernels
+from fem_tpu_torch.ops.filter_tail import filter_tail, filter_tail_plain
+from fem_tpu_torch.ops.types import BIG, SENTINEL_SID, device_index_from_host
+from fem_tpu_torch.ops.verify import verify_candidates, verify_candidates_plain
+from fem_tpu_torch.pipeline.engine import EngineConfig, MappingEngine
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _slabs(rng, NB, G, CAP, spread=40):
+    """Clustered (sid, diag) slabs, 40% valid, invalid slots at the
+    sentinel pair (the generator of tests/test_filter_kernel.py)."""
+    sid = rng.integers(0, 3, (NB, G, CAP))
+    diag = rng.integers(0, spread, (NB, G, CAP)) + rng.integers(0, 4, (NB, G, CAP))
+    valid = rng.random((NB, G, CAP)) < 0.4
+    return (torch.from_numpy(np.where(valid, sid, SENTINEL_SID).astype(np.int32)),
+            torch.from_numpy(np.where(valid, diag, BIG).astype(np.int32)))
+
+
+@pytest.mark.parametrize(
+    "NB,G,CAP,CC,e,a",
+    [(130, 3, 24, 8, 5, 1), (1000, 3, 80, 16, 5, 0), (1000, 3, 80, 16, 5, 2),
+     (77, 2, 40, 8, 0, 1), (64, 3, 480, 32, 7, 1), (5, 1, 8, 4, 2, 0)],
+)
+def test_filter_tail_kernel_matches_plain(cuda, NB, G, CAP, CC, e, a):
+    sid, diag = (x.to(cuda) for x in _slabs(np.random.default_rng(NB + CAP), NB, G, CAP))
+    kernels.reset_launches()
+    got = filter_tail(sid, diag, CC, e, a)
+    torch.cuda.synchronize()
+    assert kernels.launches["filter_tail"] == 1
+    for g, w in zip(got, filter_tail_plain(sid, diag, CC, e, a)):
+        assert torch.equal(g, w)
+
+
+def test_filter_tail_kernel_eviction(cuda):
+    sid = torch.full((1, 2, 8), SENTINEL_SID, dtype=torch.int32)
+    diag = torch.full((1, 2, 8), BIG, dtype=torch.int32)
+    sid[0, 0, :2], diag[0, 0, :2] = 0, torch.tensor([10, 20], dtype=torch.int32)
+    sid[0, 1, 0], diag[0, 1, 0] = 0, 16
+    c_sid, c_pos, ovf = filter_tail(sid.to(cuda), diag.to(cuda), 4, 5, 0)
+    assert c_sid.cpu().tolist() == [[0, 0, SENTINEL_SID, SENTINEL_SID]]
+    assert c_pos.cpu().tolist() == [[10, 16, BIG, BIG]]
+    assert not ovf.item()
+
+
+def test_filter_tail_kernel_rejects_bad_input(cuda):
+    sid, diag = (x.to(cuda) for x in _slabs(np.random.default_rng(1), 4, 3, 500))
+    with pytest.raises(ValueError, match="512"):
+        filter_tail(sid, diag, 16, 5, 1)  # 16 + 500 > 512
+    with pytest.raises(ValueError, match="contiguous"):
+        filter_tail(sid.transpose(0, 1), diag.transpose(0, 1), 16, 5, 1)
+    with pytest.raises(TypeError):
+        filter_tail(sid.long(), diag, 8, 5, 1)
+
+
+@pytest.mark.parametrize("e", [0, 2, 5, 7])
+def test_myers_kernel_matches_plain(cuda, small_reference, small_index, e):
+    """Reads copied from the reference with edits, plus out-of-range sids,
+    lanes and positions and an empty read (clamped alike)."""
+    _, ref = small_reference
+    index = device_index_from_host(small_index, ref, cuda)
+    rng = np.random.default_rng(600 + e)
+    NB, Lmax, V = 300, 128, 2000
+    lens = rng.integers(30, Lmax + 1, NB).astype(np.int32)
+    lens[0] = 0
+    both = rng.integers(0, 5, (NB, Lmax)).astype(np.uint8)
+    v_lane = rng.integers(0, NB, V).astype(np.int32)
+    v_sid = rng.integers(0, ref.num_seqs, V).astype(np.int32)
+    v_pos = np.array([rng.integers(0, ref.lengths[s] - Lmax - 2 * e) for s in v_sid],
+                     np.int32)
+    for v in range(0, V, 2):
+        off = int(ref.offsets[v_sid[v]]) + int(v_pos[v]) + e
+        both[v_lane[v]] = ref.flat_codes[off : off + Lmax]
+        for _ in range(rng.integers(0, e + 2)):
+            both[v_lane[v], rng.integers(0, Lmax)] = rng.integers(0, 4)
+    v_sid[1], v_lane[3], v_pos[5], v_pos[7] = 99, -2, -500, 2**30
+    args = [torch.from_numpy(x).to(cuda) for x in (v_sid, v_pos, v_lane, both, lens)]
+    kernels.reset_launches()
+    got = verify_candidates(index, *args, e)
+    torch.cuda.synchronize()
+    assert kernels.launches["banded_myers"] == 1
+    want = verify_candidates_plain(index, *args, e)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert want.accepted.any() and not want.accepted.all()
+
+
+def _batch(reads):
+    lengths = np.array([len(r.seq) for r in reads], np.int32)
+    codes = np.full((len(reads), 128), 4, np.uint8)
+    for i, r in enumerate(reads):
+        codes[i, : len(r.seq)] = encode(r.seq)
+    return ReadBatch([r.name for r in reads], [r.seq for r in reads],
+                     [r.qual for r in reads], codes, lengths)
+
+
+def test_engine_on_cuda_matches_golden(cuda, small_reference, small_index, default_args):
+    seqs, ref = small_reference
+    engine = MappingEngine(
+        default_args, ref, small_index,
+        EngineConfig(batch_size=64, cap_occ=80, cap_cand=16, verify_per_read=4),
+        device=cuda,
+    )
+    golden = GoldenMapper(default_args, ref, small_index)
+    reads = sim.simulate_reads(seqs, 64, read_length=100, max_errors=2, seed=35)
+    batch = _batch(reads)
+    kernels.reset_launches()
+    recs, stats = engine.map_batch(batch)
+    grecs, gstats = golden.map_reads(batch.names, batch.seqs, batch.quals)
+    assert b"".join(recs) == b"".join(grecs)
+    assert dataclasses.asdict(stats) == dataclasses.asdict(gstats)
+    assert kernels.launches == {"banded_myers": 1, "filter_tail": 1}

@@ -1,0 +1,104 @@
+"""The port's index, parameters and import boundary against fem_tpu."""
+
+import dataclasses
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from fem_tpu.config import FemArgs
+from fem_tpu.ops import types as jtypes
+from fem_tpu_torch.ops import types as ttypes
+
+torch.set_num_threads(1)
+
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.mark.parametrize(
+    "e,a,lmax,caps",
+    [(2, 1, 128, {}), (5, 1, 128, {"cap_occ": 80, "cap_cand": 16}),
+     (0, 0, 96, {"cap_vote": 32}), (7, 2, 256, {"cap_occ": 512})],
+)
+def test_filter_params_match_jax(e, a, lmax, caps):
+    args = FemArgs(error_threshold=e, num_additional_qgrams=a)
+    jp = jtypes.FilterParams.from_args(args, lmax, **caps)
+    tp = ttypes.FilterParams.from_args(args, lmax, **caps)
+    assert dataclasses.asdict(jp) == dataclasses.asdict(tp)
+    for prop in ("num_qgrams", "seed_span", "max_num_seeds", "max_group_size",
+                 "max_dp_cols"):
+        assert getattr(jp, prop) == getattr(tp, prop), prop
+    assert int(jtypes.SENTINEL_SID) == ttypes.SENTINEL_SID
+
+
+def test_device_index_from_jax_equals_from_host(small_reference, small_index):
+    _, ref = small_reference
+    jidx = jtypes.device_index_from_host(small_index, ref)
+    arrays = {
+        k: np.asarray(getattr(jidx, k))
+        for k in ("occ_rows", "ref_rows", "csr_rows", "freq_table",
+                  "ref_offsets", "ref_lengths", "num_occurrences")
+    }
+    got = ttypes.device_index_from_jax(arrays, "cpu")
+    want = ttypes.device_index_from_host(small_index, ref, "cpu")
+    assert got.num_occurrences == want.num_occurrences == small_index.num_occurrences
+    for f in ("occ", "lookup", "freq_table", "ref_flat", "ref_offsets", "ref_lengths"):
+        a, b = getattr(got, f), getattr(want, f)
+        assert a.dtype == b.dtype, f
+        assert torch.equal(a, b), f
+    np.testing.assert_array_equal(got.freq_table.numpy(), arrays["freq_table"])
+    np.testing.assert_array_equal(
+        want.occ.numpy().view(np.uint64), small_index.occurrences
+    )
+    np.testing.assert_array_equal(want.ref_flat.numpy(), ref.flat_codes)
+
+
+def test_port_imports_without_jax(tmp_path):
+    """The port must run where JAX is not installed: import its engine and
+    kernel loader with every jax import made to fail, then map a few reads
+    on the CPU through the modules chip_smoke.py uses."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "import fem_tpu_torch.pipeline.engine, fem_tpu_torch.kernels\n"
+        "import chip_smoke\n"
+        "from fem_tpu import sim\n"
+        "from fem_tpu.config import FemArgs\n"
+        "from fem_tpu.index.build import build_index\n"
+        "from fem_tpu.io import fastx\n"
+        "from fem_tpu_torch.pipeline.engine import EngineConfig, MappingEngine\n"
+        "seqs = sim.random_genome(20_000, num_seqs=1, seed=3)\n"
+        "sim.write_fasta('ref.fa', seqs)\n"
+        "sim.write_fastq('reads.fq', sim.simulate_reads(seqs, 16, max_errors=2, seed=4))\n"
+        "ref = fastx.read_fasta('ref.fa')\n"
+        "engine = MappingEngine(FemArgs(), ref, build_index(ref, 12, 3),\n"
+        "                       EngineConfig(batch_size=16), device='cpu')\n"
+        "recs, stats = engine.map_batch(next(fastx.stream_fastq_batches('reads.fq', 16)))\n"
+        "assert stats.num_reads == 16 and stats.num_mapped_reads > 0, stats\n"
+        "bad = [m for m in sys.modules if m.startswith(('jax', 'fem_tpu.ops',"
+        " 'fem_tpu.pipeline', 'fem_tpu.parallel')) and sys.modules[m] is not None]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=_REPO)
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=tmp_path, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def test_cuda_request_raises_without_cuda(small_reference, small_index, default_args):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from fem_tpu_torch.pipeline.engine import MappingEngine
+
+    _, ref = small_reference
+    with pytest.raises(RuntimeError, match="CUDA"):
+        MappingEngine(default_args, ref, small_index, device="cuda")
+    with pytest.raises((RuntimeError, AssertionError)):
+        ttypes.device_index_from_host(small_index, ref, "cuda")
