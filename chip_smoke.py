@@ -8,17 +8,35 @@ exits non-zero without its result line:
 
   1. device   the card (nvidia-smi name and power limit), torch, CUDA and
               nvcc versions; no CUDA device is an error, never a CPU run.
-  2. build    nvcc builds fem_tpu_torch/csrc/*.cu for sm_90a.
+  2. build    nvcc builds fem_tpu_torch/csrc/*.cu for sm_90a (ptxas -v usage
+              printed); g++ builds the port's native host library and the
+              fem_baseline oracle from fem_tpu_torch/native/src/.
   3. setup    the bench operating point (bench.py, BASELINE.json config 3):
               a synthetic 46 Mb genome with 30% repeats, k=12 step=3 index,
               65,536 simulated 100 bp reads with up to 5 errors.
   4. kernels  each CUDA kernel against its plain torch version on the card,
-              at the main path's shapes; outputs are integers and must be
-              exactly equal. Times are CUDA-event medians.
+              at the main path's shapes, on synthetic inputs; outputs are
+              integers and must be exactly equal. Times are CUDA-event
+              medians of the wrapper's call (Myers' includes its small
+              accept compare): `ms` back to back (inputs as warm as the
+              50 MB L2 keeps them), `ms_cold` with the L2 overwritten
+              before every launch; `ms_profiler` is the kernel alone, by
+              torch.profiler.
   5. main     MappingEngine.map_stream on the card at e=5 a=1, B=16384,
               cap_occ=80, cap_cand=16, vpr=2, apr=0.85, tier 0 only. Both
               kernels must have launched, and the SAM record multiset and
               the five counters must equal fem_baseline's on the same reads.
+  6. replay   each kernel again on the inputs the main path gave it in one
+              steady batch (captured there): equal to the plain version,
+              then timed warm and cold like phase 4. On the main path the
+              slabs were written just before the kernel runs, so the warm
+              number is the nearer one there.
+
+Each kernel's bound is the least time the card could take for the same
+inputs: the bytes it must move (inputs once, outputs once) over 3.35 TB/s,
+or its unavoidable int32 operations over 64 lanes x SMs x the max SM clock
+nvidia-smi reports, whichever is larger. No single PyTorch call computes
+either function, so library_ms is null.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -45,6 +63,12 @@ BATCH = 16_384
 E, A = 5, 1
 KMER, STEP = 12, 3
 _DIG_MOD = 1 << 128
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+INT32_LANES_PER_SM = 64
+MYERS_OPS_PER_STEP = 17  # the recurrence of myers_core.h:step, nothing else
+# Times of the first versions of the kernels at the phase-4 shapes: another
+# call on the same card model (NVIDIA H100 80GB HBM3, 700 W), for reference.
+PREV_MS = {"filter_tail": 0.554, "banded_myers": 0.108}
 
 
 def log(msg: str) -> None:
@@ -56,19 +80,58 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError(msg)
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Median CUDA-event time of fn() in ms, after one warm-up call."""
+_l2_scratch = None
+
+
+def flush_l2() -> None:
+    """Overwrite 256 MB, five times the L2, so the next launch finds its
+    inputs in device memory only."""
+    global _l2_scratch
+    if _l2_scratch is None:
+        _l2_scratch = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    _l2_scratch.add_(1)
+
+
+def cuda_ms(fn, reps: int, cold: bool = False) -> float:
+    """Median time of fn() in ms by CUDA events, after one warm-up call.
+    Warm: a sample is a run of `reps` calls between two events, over
+    `reps`; the device is first kept busy for a few ms, so the host has
+    every call enqueued before the first starts and its launch gaps are not
+    in the time. Cold: the L2 is overwritten before every timed call."""
     fn()
     times = []
-    for _ in range(reps):
+    for _ in range(reps if cold else 5):
+        for _ in range(1 if cold else 24):
+            flush_l2()
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(1 if cold else reps):
+            fn()
         stop.record()
         stop.synchronize()
-        times.append(start.elapsed_time(stop))
+        times.append(start.elapsed_time(stop) / (1 if cold else reps))
     return statistics.median(times)
+
+
+def profiler_ms(fn, kernel: str, reps: int = 20):
+    """Mean device time of the CUDA kernel whose name contains `kernel`
+    over `reps` calls of fn(), from torch.profiler; None if the profiler
+    recorded no such kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = count = 0
+    for ev in prof.key_averages():
+        if kernel in ev.key:
+            total += getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
+            count += ev.count
+    return total / count / 1e3 if count and total else None
 
 
 def max_abs_err(got, want) -> int:
@@ -103,36 +166,71 @@ def counters_from_stderr(stderr: str) -> list[int]:
     return out
 
 
+def _smi(query: str) -> str:
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True,
+    ).stdout.strip().splitlines()[0]
+
+
+def int32_ops_per_s() -> float:
+    """Peak int32 ALU rate: lanes x SMs x the max SM clock."""
+    mhz = float(_smi("clocks.max.sm").split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return INT32_LANES_PER_SM * sms * mhz * 1e6
+
+
+def bound(nbytes: int, ops: int) -> dict:
+    """bound_ms, the larger of bytes over the memory rate and operations
+    over the int32 rate, and which of the two it is."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / int32_ops_per_s() * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "bound_bytes": int(nbytes), "bound_int32_ops": int(ops)}
+
+
 def phase_device() -> str:
     check(torch.cuda.is_available(), "no CUDA device: chip_smoke runs only on a GPU")
     from fem_tpu_torch import kernels
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True,
-    ).stdout.strip().splitlines()[0]
+    smi = _smi("name,power.limit")
     nvcc = subprocess.run([kernels.nvcc_path(), "--version"], check=True,
                           capture_output=True, text=True).stdout.strip().splitlines()[-1]
     log(smi)
     log(f"[device] {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()} | "
-        f"torch {torch.__version__} CUDA {torch.version.cuda} | nvcc {nvcc}")
+        f"torch {torch.__version__} CUDA {torch.version.cuda} | nvcc {nvcc} | "
+        f"max SM clock {_smi('clocks.max.sm')}, int32 peak "
+        f"{int32_ops_per_s() / 1e12:.2f} Top/s")
     return smi
 
 
 def phase_build() -> None:
     from fem_tpu_torch import kernels
+    from fem_tpu_torch.native import build as native_build
 
+    name = "?"
     t0 = time.perf_counter()
     kernels.build(force=True)
     kernels.library()
     log(f"[build] {kernels.LIB_PATH} built in {time.perf_counter() - t0:.1f} s")
+    for line in kernels.build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = re.search(r"(filter_tail_kernelILi\d+|banded_myers_kernel)", m.group(1))
+            name = name.group(1) if name else m.group(1)
+        elif "registers" in line or "spill" in line:
+            log(f"[build] ptxas {name}: {line.replace('ptxas info    :', '').strip()}")
+    t0 = time.perf_counter()
+    lib, base = native_build.build_native(force=True), native_build.build_baseline(force=True)
+    log(f"[build] {lib} and {base} built in {time.perf_counter() - t0:.1f} s")
 
 
 def phase_setup(workdir: str):
-    from fem_tpu import sim
-    from fem_tpu.index.build import build_index
-    from fem_tpu.index.storage import save_index
-    from fem_tpu.io import fastx
+    from fem_tpu_torch import sim
+    from fem_tpu_torch.index.build import build_index
+    from fem_tpu_torch.index.storage import save_index
+    from fem_tpu_torch.io import fastx
 
     t0 = time.perf_counter()
     seqs = sim.random_genome(GENOME_BP, num_seqs=1, seed=7, repeat_fraction=0.3)
@@ -174,6 +272,53 @@ def _myers_inputs(ref, e: int, rng, dev):
     return t(v_sid), t(v_pos), t(v_lane), t(both), t(lens)
 
 
+def tail_bound(sid, diag, cc: int) -> tuple[dict, str]:
+    """Bound of one filter_tail call on these slabs, and a line about them.
+    Bytes: both slabs in, cc (sid, pos) pairs and one flag a lane out.
+    Operations: one validity compare a slot, and n log2 n compare-exchanges
+    for a group's n valid keys (sort) plus n to merge and fold them."""
+    from fem_tpu_torch.ops.types import SENTINEL_SID
+
+    NB = sid.shape[0]
+    n = (sid != SENTINEL_SID).sum(dim=2).double()  # valid keys per (lane, group)
+    ops = sid.numel() + int((n * (torch.log2(n.clamp(min=2)).ceil() + 1)).sum())
+    nbytes = sid.numel() * 4 + diag.numel() * 4 + NB * (cc * 8 + 1)
+    note = (f"valid keys per (lane, group): mean {float(n.mean()):.2f}, "
+            f"max {int(n.max())}, groups over 32 keys {float((n > 32).double().mean()):.1%}")
+    return bound(nbytes, ops), note
+
+
+def myers_bound(v_sid, v_pos, v_lane, both, lens, e: int, used) -> tuple[dict, str]:
+    """Bound of one banded_myers call on these slots, and a line about them.
+    Bytes: per slot in use 12 of indices, its window (length + 2e) and 8 of
+    results; each read that is used, once; 8 of results per unused slot.
+    Operations: the Myers recurrence, 17 int32 operations a step, `length`
+    steps a slot in use."""
+    V = v_sid.shape[0]
+    NB, Lmax = both.shape
+    n_used = V if used is None else min(int(used), V)
+    lane = v_lane[:n_used].long().clamp(0, NB - 1)
+    steps = lens[lane].clamp(0, Lmax).long()
+    reads = torch.unique(lane)
+    nbytes = (n_used * 20 + int((steps + 2 * e).sum()) + (V - n_used) * 8
+              + int(lens[reads].clamp(0, Lmax).sum()) + 4 * reads.numel())
+    note = (f"slots in use {n_used} of {V}, mean length "
+            f"{float(steps.double().mean()) if n_used else 0.0:.1f}, reads used {reads.numel()}")
+    return bound(nbytes, int(steps.sum()) * MYERS_OPS_PER_STEP), note
+
+
+def compare_and_time(name: str, what: str, kernel, plain, plain_reps: int) -> dict:
+    """kernel() against plain() on the same inputs (exact), then the times."""
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    d = max_abs_err(got, want)
+    check(d == 0, f"{name} differs from its plain version on {what}")
+    return {"max_abs_err": d, "ms": cuda_ms(kernel, 20),
+            "ms_cold": cuda_ms(kernel, 20, cold=True),
+            "ms_profiler": profiler_ms(kernel, f"{name}_kernel"),
+            "plain_ms": cuda_ms(plain, plain_reps)}
+
+
 def phase_kernels(ref, index, dev) -> list[dict]:
     from fem_tpu_torch.ops.filter_tail import filter_tail, filter_tail_plain
     from fem_tpu_torch.ops.types import BIG, SENTINEL_SID, device_index_from_host
@@ -183,32 +328,48 @@ def phase_kernels(ref, index, dev) -> list[dict]:
     dindex = device_index_from_host(index, ref, dev)
     rows = []
 
-    # Banded Myers: V = 65,536 slots, Lmax = 128, e in {0, 2, 5, 7}.
-    err, ms, plain_ms = 0, None, None
+    # Banded Myers: V = 65,536 slots, Lmax = 128, e in {0, 2, 5, 7}; then the
+    # slab half in use, as the main path leaves it.
+    row = {"name": "banded_myers", "route": "cuda",
+           "source": "fem_tpu_torch/csrc/banded_myers.cu",
+           "replaces": "fem_tpu/ops/verify_pallas.py:122", "library_ms": None,
+           "prev_ms": PREV_MS["banded_myers"]}
+    err = 0
     for e in (0, 2, 5, 7):
         args = _myers_inputs(ref, e, rng, dev)
-        got = verify_candidates(dindex, *args, e)
-        want = verify_candidates_plain(dindex, *args, e)
-        torch.cuda.synchronize()
-        d = max_abs_err(got, want)
-        n_acc = int(want.accepted.sum())
-        log(f"[kernels] banded_myers e={e} V={args[0].shape[0]}: max_abs_err {d}, "
-            f"{n_acc} accepted")
-        check(d == 0, f"banded_myers differs from its plain version at e={e}")
-        check(0 < n_acc < args[0].shape[0], "banded_myers check accepts all or none")
-        err = max(err, d)
+        V = args[0].shape[0]
+        for used in (None, torch.tensor(V // 2, device=dev)):
+            got = verify_candidates(dindex, *args, e, used=used)
+            want = verify_candidates_plain(dindex, *args, e, used=used)
+            torch.cuda.synchronize()
+            d = max_abs_err(got, want)
+            n_acc = int(want.accepted.sum())
+            log(f"[kernels] banded_myers e={e} V={V} used={'all' if used is None else int(used)}: "
+                f"max_abs_err {d}, {n_acc} accepted")
+            check(d == 0, f"banded_myers differs from its plain version at e={e}")
+            check(0 < n_acc < V, "banded_myers check accepts all or none")
+            err = max(err, d)
         if e == E:
-            ms = cuda_ms(lambda: verify_candidates(dindex, *args, e), 20)
-            plain_ms = cuda_ms(lambda: verify_candidates_plain(dindex, *args, e), 5)
-    rows.append({"name": "banded_myers", "route": "cuda",
-                 "source": "fem_tpu_torch/csrc/banded_myers.cu",
-                 "replaces": "fem_tpu/ops/verify_pallas.py:122",
-                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
-    log(f"[kernels] banded_myers at e={E}: {ms:.3f} ms, plain {plain_ms:.3f} ms")
+            row.update(compare_and_time(
+                "banded_myers", "synthetic slots",
+                lambda: verify_candidates(dindex, *args, e),
+                lambda: verify_candidates_plain(dindex, *args, e), 5))
+            bnd, note = myers_bound(*args, e, None)
+            row.update(bnd)
+            log(f"[kernels] banded_myers synthetic: {note}")
+    row["max_abs_err"] = max(err, row["max_abs_err"])
+    rows.append(row)
+    log(f"[kernels] banded_myers at e={E}: {row['ms']:.4f} ms warm, {row['ms_cold']:.4f} ms "
+        f"cold, {row['ms_profiler']} ms by the profiler, plain {row['plain_ms']:.3f} ms, bound {row['bound_ms'] * 1e3:.2f} us "
+        f"by {row['bound_by']}")
 
     # Filter tail: NB = 32,768 lanes, G = 3 groups, clustered slabs
     # (tests/test_filter_kernel.py:_random_slabs), plus cap_cand + cap_occ = 512.
-    err, ms, plain_ms = 0, None, None
+    row = {"name": "filter_tail", "route": "cuda",
+           "source": "fem_tpu_torch/csrc/filter_tail.cu",
+           "replaces": "fem_tpu/ops/filter_tail_pallas.py:213", "library_ms": None,
+           "prev_ms": PREV_MS["filter_tail"]}
+    err = 0
     NB, G = 2 * BATCH, STEP
     for CAP, CC, a in ((80, 16, 0), (80, 16, 1), (80, 16, 2), (480, 32, 1)):
         sid = rng.integers(0, 3, (NB, G, CAP))
@@ -225,30 +386,94 @@ def phase_kernels(ref, index, dev) -> list[dict]:
         check(d == 0, f"filter_tail differs from its plain version at CAP={CAP} a={a}")
         err = max(err, d)
         if (CAP, CC, a) == (80, 16, A):
-            ms = cuda_ms(lambda: filter_tail(sid, diag, CC, E, a), 20)
-            plain_ms = cuda_ms(lambda: filter_tail_plain(sid, diag, CC, E, a), 3)
-    rows.append({"name": "filter_tail", "route": "cuda",
-                 "source": "fem_tpu_torch/csrc/filter_tail.cu",
-                 "replaces": "fem_tpu/ops/filter_tail_pallas.py:213",
-                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
-    log(f"[kernels] filter_tail at CAP=80 CC=16 a={A}: {ms:.3f} ms, "
-        f"plain {plain_ms:.3f} ms")
+            row.update(compare_and_time(
+                "filter_tail", "synthetic slabs",
+                lambda: filter_tail(sid, diag, CC, E, a),
+                lambda: filter_tail_plain(sid, diag, CC, E, a), 3))
+            bnd, note = tail_bound(sid, diag, CC)
+            row.update(bnd)
+            log(f"[kernels] filter_tail synthetic: {note}")
+    row["max_abs_err"] = max(err, row["max_abs_err"])
+    rows.append(row)
+    log(f"[kernels] filter_tail at CAP=80 CC=16 a={A}: {row['ms']:.4f} ms warm, "
+        f"{row['ms_cold']:.4f} ms cold, {row['ms_profiler']} ms by the profiler, "
+        f"plain {row['plain_ms']:.3f} ms, bound "
+        f"{row['bound_ms'] * 1e3:.2f} us by {row['bound_by']}")
     return rows
 
 
-def phase_main(ref, index, paths, dev) -> dict:
-    from fem_tpu.config import FemArgs
-    from fem_tpu.golden.model import MappingStats
-    from fem_tpu.io import fastx
-    from fem_tpu.native.build import build_baseline
+def phase_replay(rows: list[dict], captured: dict) -> None:
+    """Each kernel on the inputs one steady batch of the main path gave it."""
+    from fem_tpu_torch.ops.filter_tail import filter_tail, filter_tail_plain
+    from fem_tpu_torch.ops.verify import verify_candidates, verify_candidates_plain
+
+    by_name = {r["name"]: r for r in rows}
+    check(set(captured) == set(by_name), f"captured inputs of {sorted(captured)} only")
+
+    (sid, diag, cc, e, a), _ = captured["filter_tail"]
+    res = compare_and_time("filter_tail", "the main path's slabs",
+                           lambda: filter_tail(sid, diag, cc, e, a),
+                           lambda: filter_tail_plain(sid, diag, cc, e, a), 3)
+    bnd, note = tail_bound(sid, diag, cc)
+    _record_replay(by_name["filter_tail"], res, bnd,
+                   f"NB={sid.shape[0]} G={sid.shape[1]} CAP={sid.shape[2]} CC={cc} "
+                   f"e={e} a={a}; {note}")
+
+    (dindex, v_sid, v_pos, v_lane, both, lens, e), kw = captured["banded_myers"]
+    used = kw["used"]
+    res = compare_and_time(
+        "banded_myers", "the main path's slab",
+        lambda: verify_candidates(dindex, v_sid, v_pos, v_lane, both, lens, e, used=used),
+        lambda: verify_candidates_plain(dindex, v_sid, v_pos, v_lane, both, lens, e, used=used),
+        5)
+    bnd, note = myers_bound(v_sid, v_pos, v_lane, both, lens, e, used)
+    _record_replay(by_name["banded_myers"], res, bnd,
+                   f"V={v_sid.shape[0]} Lmax={both.shape[1]} e={e}; {note}")
+
+
+def _record_replay(row: dict, res: dict, bnd: dict, what: str) -> None:
+    row["max_abs_err"] = max(row["max_abs_err"], res["max_abs_err"])
+    row.update(ms_main_inputs=res["ms"], ms_main_inputs_cold=res["ms_cold"],
+               ms_main_inputs_profiler=res["ms_profiler"],
+               plain_ms_main_inputs=res["plain_ms"],
+               bound_ms_main_inputs=bnd["bound_ms"], bound_by_main_inputs=bnd["bound_by"])
+    log(f"[replay] {row['name']} on the main path's inputs ({what}): "
+        f"{res['ms']:.4f} ms warm, {res['ms_cold']:.4f} ms cold, "
+        f"{res['ms_profiler']} ms by the profiler, plain "
+        f"{res['plain_ms']:.3f} ms, bound {bnd['bound_ms'] * 1e3:.2f} us by {bnd['bound_by']}")
+
+
+def _capture_first_call(module, attr: str, into: dict, key: str):
+    """Wrap module.attr so that its first call's arguments are kept (tensors
+    cloned) in into[key]; returns the function that undoes the wrap."""
+    real = getattr(module, attr)
+    keep = lambda x: x.clone() if torch.is_tensor(x) else x
+
+    def wrapped(*args, **kwargs):
+        if key not in into:
+            into[key] = ([keep(x) for x in args], {k: keep(v) for k, v in kwargs.items()})
+        return real(*args, **kwargs)
+
+    setattr(module, attr, wrapped)
+    return lambda: setattr(module, attr, real)
+
+
+def phase_main(ref, index, paths, dev) -> tuple[dict, dict]:
     from fem_tpu_torch import kernels
+    from fem_tpu_torch.config import FemArgs
+    from fem_tpu_torch.io import fastx
+    from fem_tpu_torch.native.build import build_baseline
+    from fem_tpu_torch.ops import candidates as candidates_mod
+    from fem_tpu_torch.pipeline import engine as engine_mod
     from fem_tpu_torch.pipeline.engine import EngineConfig, MappingEngine, StageTimer
+    from fem_tpu_torch.stats import MappingStats
 
     args = FemArgs(kmer_size=KMER, step_size=STEP, error_threshold=E,
                    num_additional_qgrams=A)
     config = EngineConfig(batch_size=BATCH, cap_occ=80, cap_cand=16,
                           verify_per_read=2, accept_per_read=0.85)
-    engine = MappingEngine(args, ref, index, config, device=dev)
+    engine = MappingEngine(args, ref, index, config)  # the default device: the card
+    check(engine.device.type == "cuda", "MappingEngine did not default to the card")
     batches = list(fastx.stream_fastq_batches(paths["fq"], batch_size=BATCH))
     log(f"[main] device index {engine.dindex.nbytes() / 2**30:.3f} GiB on {dev}")
 
@@ -263,12 +488,17 @@ def phase_main(ref, index, paths, dev) -> dict:
     warm_s = time.perf_counter() - t0
     engine.stage_timer = StageTimer(torch.device(dev))
     steady = MappingStats()
+    captured: dict = {}  # the kernels' inputs in the first steady batch
+    undo = [_capture_first_call(candidates_mod, "filter_tail", captured, "filter_tail"),
+            _capture_first_call(engine_mod, "verify_candidates", captured, "banded_myers")]
     t0 = time.perf_counter()
     for r, st in engine.map_stream(batches[1:]):
         recs.extend(r)
         steady += st
     steady_s = time.perf_counter() - t0
     launches = dict(kernels.launches)
+    for restore in undo:
+        restore()
     peak = torch.cuda.max_memory_allocated(dev)
     total += steady
     log(f"[main] kernel launches on the main path: {launches}")
@@ -302,7 +532,7 @@ def phase_main(ref, index, paths, dev) -> dict:
           "SAM record multiset differs from fem_baseline")
     check(got_counters == want_counters, "counters differ from fem_baseline")
     check(total.num_reads == NUM_READS, "not every read was mapped")
-    return launches
+    return launches, captured
 
 
 def main() -> int:
@@ -312,9 +542,11 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as workdir:
         ref, index, paths = phase_setup(workdir)
         rows = phase_kernels(ref, index, dev)
-        launches = phase_main(ref, index, paths, dev)
+        launches, captured = phase_main(ref, index, paths, dev)
+        phase_replay(rows, captured)
     for row in rows:
         row["launches"] = launches[row["name"]]
+        row["bound_us"] = row["bound_ms"] * 1e3
     log(f"[done] card: {smi}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

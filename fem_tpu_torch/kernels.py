@@ -2,11 +2,13 @@
 
 csrc/*.cu compile with nvcc into one shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds), loaded with
-ctypes. Each C entry point takes its CUDA stream and returns
+ctypes. Each source compiles to its own object, all at once, and one link
+joins them. Each C entry point takes its CUDA stream and returns
 cudaGetLastError() right after the launch. The library lives in
 build/fem_tpu_torch/ at the repository root and is rebuilt when any
-source is newer (the pattern of fem_tpu/native/build.py). A compile error
-raises with nvcc's stderr; nothing is taken from outside the checkout.
+source is newer. A compile error raises with nvcc's stderr; nothing is
+taken from outside the checkout. `build_log` keeps what ptxas said of
+each kernel's registers, shared memory and spills (-Xptxas -v).
 
 `launches` counts kernel launches per kernel; each wrapper adds one where
 it launches its kernel, so a run can show that its main path went
@@ -19,17 +21,18 @@ import ctypes
 import glob
 import os
 import shutil
-import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 
-_HERE = os.path.dirname(os.path.abspath(__file__))
-CSRC = os.path.join(_HERE, "csrc")
-BUILD_DIR = os.path.join(os.path.dirname(_HERE), "build", "fem_tpu_torch")
+from fem_tpu_torch._build import BUILD_DIR, compile_to, stale
+
+CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 LIB_PATH = os.path.join(BUILD_DIR, "libfem_tpu_torch_kernels.so")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+build_log = ""  # ptxas -v output of the last build in this process
 
 launches = {"banded_myers": 0, "filter_tail": 0}
 
@@ -46,27 +49,6 @@ def reset_launches() -> None:
         launches[k] = 0
 
 
-def _stale(target: str, srcs: list[str]) -> bool:
-    if not os.path.exists(target):
-        return True
-    t = os.path.getmtime(target)
-    return any(os.path.getmtime(s) > t for s in srcs)
-
-
-def _compile(cmd: list[str], target: str) -> None:
-    """Run a compiler writing `target` via a per-process temp name, so
-    concurrent builds never load a half-written library."""
-    os.makedirs(os.path.dirname(target), exist_ok=True)
-    tmp = f"{target}.{os.getpid()}.tmp"
-    proc = subprocess.run([*cmd, "-o", tmp], capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"{os.path.basename(cmd[0])} failed (exit {proc.returncode}):\n"
-            f"{' '.join(cmd)}\n{proc.stderr}"
-        )
-    os.replace(tmp, target)
-
-
 def nvcc_path() -> str:
     for cand in (
         os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
@@ -79,10 +61,19 @@ def nvcc_path() -> str:
 
 def build(force: bool = False) -> str:
     """Compile csrc/*.cu for sm_90a if the library is missing or stale."""
+    global build_log
     srcs = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
     hdrs = sorted(glob.glob(os.path.join(CSRC, "*.h")))
-    if force or _stale(LIB_PATH, srcs + hdrs):
-        _compile([nvcc_path(), *NVCC_FLAGS, *srcs], LIB_PATH)
+    if force or stale(LIB_PATH, srcs + hdrs):
+        nvcc = nvcc_path()
+        objs = [os.path.join(BUILD_DIR, os.path.basename(s)[:-3] + ".o") for s in srcs]
+        with ThreadPoolExecutor(len(srcs)) as pool:
+            logs = list(pool.map(
+                lambda so: compile_to([nvcc, *NVCC_FLAGS, "-c", so[0]], so[1]),
+                zip(srcs, objs),
+            ))
+        compile_to([nvcc, "-shared", *objs], LIB_PATH)
+        build_log = "".join(logs)
     return LIB_PATH
 
 
@@ -97,7 +88,7 @@ def library() -> ctypes.CDLL:
                 _P, _I64, _P, _I,  # ref, ref_len, ref_offsets, num_seqs
                 _P, _P, _P,  # v_sid, v_pos, v_lane
                 _P, _P, _I, _I, _I,  # both, lens, nb, lmax, e
-                _I, _P, _P, _P,  # num_slots, ed, end, stream
+                _I, _P, _P, _P, _P,  # num_slots, used, ed, end, stream
             ]
             lib.fem_filter_tail.restype = _I
             lib.fem_filter_tail.argtypes = [
@@ -121,16 +112,16 @@ def build_host_check(out_dir: str) -> ctypes.CDLL:
     """g++ build of csrc/host_check.cpp: the kernels' per-lane header code
     compiled for the host, for the CPU tests. Raises on a compile error."""
     target = os.path.join(out_dir, "libfem_tpu_torch_host_check.so")
-    _compile(
-        ["g++", "-O2", "-std=c++17", "-Wall", "-shared", "-fPIC",
-         os.path.join(CSRC, "host_check.cpp")],
+    compile_to(
+        ["g++", "-O2", "-std=c++17", "-Wall", "-Wno-unknown-pragmas", "-shared",
+         "-fPIC", os.path.join(CSRC, "host_check.cpp")],
         target,
     )
     lib = ctypes.CDLL(target)
-    lib.fem_host_filter_tail.restype = None
+    lib.fem_host_filter_tail.restype = _I
     lib.fem_host_filter_tail.argtypes = [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P]
     lib.fem_host_banded_myers.restype = None
     lib.fem_host_banded_myers.argtypes = [
-        _P, _I64, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P,
+        _P, _I64, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P,
     ]
     return lib

@@ -1,0 +1,67 @@
+"""On-demand build of the port's native host code (fem_tpu/native/build.py).
+
+g++ compiles native/src/ into build/fem_tpu_torch/ at the repository
+root: the shared library `libfem_tpu_torch_native.so` (SAM emitter, exact
+CPU mapper, FASTQ reader; a C API consumed via ctypes) and the standalone
+`fem_baseline` mapper binary. Nothing is written next to the sources, so
+this package's builds never collide with fem_tpu's. A target is rebuilt
+when a source is newer; a compile error raises with the compiler's stderr.
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+
+from fem_tpu_torch._build import BUILD_DIR, compile_to, stale
+
+SRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
+LIB_PATH = os.path.join(BUILD_DIR, "libfem_tpu_torch_native.so")
+BASELINE_PATH = os.path.join(BUILD_DIR, "fem_baseline")
+_lock = threading.Lock()
+
+_CXXFLAGS = ["-O3", "-march=native", "-std=c++17", "-Wall"]
+_MAINS = ("baseline.cpp",)  # standalone binaries, not part of the library
+
+
+def _listed(suffix: str) -> list[str]:
+    return [os.path.join(SRC_DIR, f) for f in sorted(os.listdir(SRC_DIR))
+            if f.endswith(suffix)]
+
+
+def build_native(force: bool = False) -> str:
+    """Build the shared library consumed via ctypes; returns its path."""
+    with _lock:
+        srcs = [s for s in _listed(".cpp") if os.path.basename(s) not in _MAINS]
+        if force or stale(LIB_PATH, srcs + _listed(".h")):
+            compile_to(
+                ["g++", *_CXXFLAGS, "-pthread", "-shared", "-fPIC", *srcs, "-lz"],
+                LIB_PATH,
+            )
+        return LIB_PATH
+
+
+def build_baseline(force: bool = False) -> str:
+    """Build the standalone fem_baseline CPU mapper binary; returns its path."""
+    with _lock:
+        src = os.path.join(SRC_DIR, "baseline.cpp")
+        if force or stale(BASELINE_PATH, [src] + _listed(".h")):
+            compile_to(["g++", *_CXXFLAGS, "-pthread", src, "-lz"], BASELINE_PATH)
+        return BASELINE_PATH
+
+
+_lib = None
+
+
+def native_library():
+    """The loaded shared library (built on first use), one handle for the
+    emitter, the mapper and the reader. A failed build raises."""
+    import ctypes
+
+    global _lib
+    path = build_native()
+    with _lock:
+        if _lib is None:
+            _lib = ctypes.CDLL(path)
+            _lib.fem_free.argtypes = [ctypes.c_void_p]
+        return _lib

@@ -17,9 +17,9 @@ import dataclasses
 import numpy as np
 import torch
 
-from fem_tpu.config import FemArgs
-from fem_tpu.index.storage import FemIndex
-from fem_tpu.io.fastx import Reference
+from fem_tpu_torch.config import FemArgs
+from fem_tpu_torch.index.storage import FemIndex
+from fem_tpu_torch.io.fastx import Reference
 
 # Sentinel chromosome id of invalid (sid, pos) slots: sorts after every
 # real chromosome and never equals one (same value as fem_tpu).

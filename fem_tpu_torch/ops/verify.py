@@ -7,7 +7,13 @@ attaining it) (src/align.c:102-147). The 3e early exit is left out: it
 only rejects candidates that the full run rejects too.
 
 `verify_candidates` runs the CUDA kernel (csrc/banded_myers.cu) on CUDA
-tensors and the plain torch version beside it on CPU tensors.
+tensors and the plain torch version beside it on CPU tensors. Codes are
+below 8 (A C G T N = 0..4): the kernel compares their low three bits.
+
+`used`, an optional 0-d integer tensor on the same device, says how many
+leading slots hold a candidate. The rest are not computed: they come back
+with edit distance e + 1, end offset -1, not accepted. It stays on the
+device, so passing it costs no synchronisation.
 """
 
 from __future__ import annotations
@@ -81,16 +87,25 @@ def banded_myers(
 
 
 def verify_candidates_plain(
-    index: DeviceIndex, v_sid, v_pos, v_lane, both, lens2, error_threshold: int
+    index: DeviceIndex, v_sid, v_pos, v_lane, both, lens2, error_threshold: int,
+    used: torch.Tensor | None = None,
 ) -> VerifyResult:
     lane = v_lane.long().clamp(0, both.shape[0] - 1)
     Lmax = both.shape[1]
     window = gather_windows(index, v_sid, v_pos, Lmax + 2 * error_threshold)
     eq = compute_eq(window, both[lane], error_threshold)
-    return banded_myers(eq, lens2[lane], error_threshold)
+    res = banded_myers(eq, lens2[lane], error_threshold)
+    if used is None:
+        return res
+    in_use = torch.arange(v_sid.shape[0], device=v_sid.device) < used
+    return VerifyResult(
+        torch.where(in_use, res.edit_distance, error_threshold + 1),
+        torch.where(in_use, res.end_offset, -1),
+        res.accepted & in_use,
+    )
 
 
-def _verify_cuda(index: DeviceIndex, v_sid, v_pos, v_lane, both, lens2, e: int):
+def _verify_cuda(index: DeviceIndex, v_sid, v_pos, v_lane, both, lens2, e: int, used):
     V = v_sid.shape[0]
     NB, Lmax = both.shape
     ed = torch.empty(V, dtype=torch.int32, device=v_sid.device)
@@ -101,6 +116,7 @@ def _verify_cuda(index: DeviceIndex, v_sid, v_pos, v_lane, both, lens2, e: int):
             index.ref_offsets.data_ptr(), index.ref_offsets.shape[0],
             v_sid.data_ptr(), v_pos.data_ptr(), v_lane.data_ptr(),
             both.data_ptr(), lens2.data_ptr(), NB, Lmax, e, V,
+            None if used is None else used.data_ptr(),
             ed.data_ptr(), end.data_ptr(),
             torch.cuda.current_stream(v_sid.device).cuda_stream,
         )
@@ -117,6 +133,7 @@ def verify_candidates(
     both: torch.Tensor,  # (NB, Lmax) uint8 read codes, both strands
     lens2: torch.Tensor,  # (NB,) int32 read lengths
     error_threshold: int,
+    used: torch.Tensor | None = None,  # 0-d int64: leading slots in use
 ) -> VerifyResult:
     """Banded Myers for every slot: ED and end offset of read v_lane[v]
     against the window at ref_offsets[v_sid[v]] + v_pos[v]."""
@@ -133,12 +150,15 @@ def verify_candidates(
             and lens2.shape[0] == both.shape[0]):
         raise ValueError("verify_candidates: mismatched shapes")
     dev = v_sid.device
+    if used is not None and (used.dtype != torch.int64 or used.dim() != 0
+                             or used.device != dev):
+        raise TypeError("used must be a 0-d int64 tensor on the slots' device")
     if any(t.device != dev for t in (v_pos, v_lane, both, lens2, index.ref_flat)):
         raise ValueError("verify_candidates: tensors lie on different devices")
     if dev.type == "cpu":
-        return verify_candidates_plain(index, v_sid, v_pos, v_lane, both, lens2, e)
+        return verify_candidates_plain(index, v_sid, v_pos, v_lane, both, lens2, e, used)
     if dev.type != "cuda":
         raise ValueError(f"verify_candidates runs on cpu or cuda, not {dev}")
     if not all(t.is_contiguous() for t in (v_sid, v_pos, v_lane, both, lens2)):
         raise ValueError("verify_candidates takes contiguous tensors")
-    return _verify_cuda(index, v_sid, v_pos, v_lane, both, lens2, e)
+    return _verify_cuda(index, v_sid, v_pos, v_lane, both, lens2, e, used)

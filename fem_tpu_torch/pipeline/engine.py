@@ -4,7 +4,7 @@ tier 0).
 Reads are batched; both strands go through one device step (hash ->
 q-gram DP -> candidate filter -> banded Myers), and the small set of
 accepted hits comes back to the host in one copy for traceback and SAM
-emission by the shared native emitter. Reads that exceed a device
+emission by the native emitter (native/). Reads that exceed a device
 capacity (occurrence slab, candidate list, verify or accept slots) or hit
 an inherent limit (incomplete DP) are mapped by the exact host mapper, so
 the ALL-mappings guarantee survives fixed capacities. There is no device
@@ -20,17 +20,15 @@ from typing import Iterable, Iterator, List, Tuple
 import numpy as np
 import torch
 
-from fem_tpu.config import FemArgs
-from fem_tpu.golden.model import MappingStats
-from fem_tpu.index.storage import FemIndex
-from fem_tpu.io.fastx import ReadBatch, Reference
-from fem_tpu.native import NativeEmitter
-from fem_tpu.native.build import build_native
-from fem_tpu.native.mapper import NativeCpuMapper
+from fem_tpu_torch.config import FemArgs
+from fem_tpu_torch.index.storage import FemIndex
+from fem_tpu_torch.io.fastx import ReadBatch, Reference
+from fem_tpu_torch.native import NativeCpuMapper, NativeEmitter
 from fem_tpu_torch.ops.candidates import generate_candidates
 from fem_tpu_torch.ops.hashing import ambiguous_base_counts, reverse_complement, seed_hashes
 from fem_tpu_torch.ops.types import DeviceIndex, FilterParams, device_index_from_host
 from fem_tpu_torch.ops.verify import verify_candidates
+from fem_tpu_torch.stats import MappingStats
 
 # map_core's stages in order, as named to a StageTimer.
 STAGES = ("hash", "candidates", "verify_slab", "verify", "accept")
@@ -92,10 +90,11 @@ def map_core(
     v_sid = _scatter(verify_cap, order, to_slab, cand.cand_sid.reshape(-1))
     v_pos = _scatter(verify_cap, order, to_slab, cand.cand_pos.reshape(-1))
     mark("verify_slab")
-    vres = verify_candidates(index, v_sid, v_pos, v_lane, both, lens2, e)
+    # Only the first `total` slots hold a candidate; the rest are skipped
+    # and come back not accepted.
+    vres = verify_candidates(index, v_sid, v_pos, v_lane, both, lens2, e, used=total)
     mark("verify")
-    in_use = torch.arange(verify_cap, device=codes.device) < total.clamp(max=verify_cap)
-    accepted = vres.accepted & in_use
+    accepted = vres.accepted
 
     acc_cap = max(accept_cap, 8)
     a_order = torch.cumsum(accepted, 0) - 1
@@ -200,7 +199,7 @@ class MappingEngine:
         index: FemIndex,
         config: EngineConfig | None = None,
         *,
-        device: torch.device | str,
+        device: torch.device | str = "cuda",
     ):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -209,7 +208,6 @@ class MappingEngine:
         self.reference = reference
         self.config = config or EngineConfig()
         self.dindex = device_index_from_host(index, reference, self.device)
-        build_native()  # raises with the compiler's error, unlike the probes
         self._native = NativeEmitter(reference, args.error_threshold)
         self._cpu_mapper = NativeCpuMapper(args, reference, index)
         self._fallback_lock = threading.Lock()

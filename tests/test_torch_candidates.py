@@ -31,6 +31,12 @@ from fem_tpu_torch.ops.candidates import generate_candidates as tgenerate
 from fem_tpu_torch.ops.filter_tail import filter_tail, filter_tail_plain
 from tests.test_engine import _batch_from_reads
 from tests.test_filter_kernel import _random_slabs, _scalar_tail
+from test_torch_cases import (
+    PALLAS_SHAPE,
+    TAIL_CASE_NAMES,
+    TAIL_SHAPE,
+    tail_cases,
+)
 
 torch.set_num_threads(1)
 SENT, BIG = ttypes.SENTINEL_SID, ttypes.BIG
@@ -101,30 +107,94 @@ def host_check():
         yield kernels.build_host_check(d)
 
 
+def _host_tail(host_check, sid_m, diag_m, CC, e, a):
+    """The g++ build of the kernel's lane code on masked (NB, G, CAP) slabs."""
+    import ctypes
+
+    NB, G, CAP = sid_m.shape
+    sid_m, diag_m = np.ascontiguousarray(sid_m), np.ascontiguousarray(diag_m)
+    out_sid = np.empty((NB, CC), np.int32)
+    out_pos = np.empty((NB, CC), np.int32)
+    ovf = np.empty(NB, np.uint8)
+    vp = lambda x: x.ctypes.data_as(ctypes.c_void_p)
+    rc = host_check.fem_host_filter_tail(
+        vp(sid_m), vp(diag_m), NB, G, CAP, CC, e, a, vp(out_sid), vp(out_pos), vp(ovf)
+    )
+    assert rc == 0
+    return out_sid, out_pos, ovf.astype(bool)
+
+
 @pytest.mark.parametrize(
     "NB,G,CAP,CC,e,a",
     [(97, 3, 24, 8, 5, 1), (64, 3, 80, 16, 5, 2), (40, 2, 40, 8, 0, 0),
      (16, 3, 480, 32, 7, 1)],  # last: cap_cand + cap_occ = 512
 )
 def test_kernel_lane_code_matches_plain(host_check, NB, G, CAP, CC, e, a):
-    import ctypes
-
     rng = np.random.default_rng(NB * 7 + CAP)
     sid, diag, valid = _random_slabs(rng, NB, G, CAP, spread=CAP)
     sid_m, diag_m = _masked(sid, diag, valid)
-    out_sid = np.empty((NB, CC), np.int32)
-    out_pos = np.empty((NB, CC), np.int32)
-    ovf = np.empty(NB, np.uint8)
-    vp = lambda x: x.ctypes.data_as(ctypes.c_void_p)
-    host_check.fem_host_filter_tail(
-        vp(sid_m), vp(diag_m), NB, G, CAP, CC, e, a, vp(out_sid), vp(out_pos), vp(ovf)
-    )
-    w_sid, w_pos, w_ovf = filter_tail_plain(
-        torch.from_numpy(sid_m), torch.from_numpy(diag_m), CC, e, a
-    )
-    np.testing.assert_array_equal(out_sid, w_sid.numpy())
-    np.testing.assert_array_equal(out_pos, w_pos.numpy())
-    np.testing.assert_array_equal(ovf.astype(bool), w_ovf.numpy())
+    got = _host_tail(host_check, sid_m, diag_m, CC, e, a)
+    want = filter_tail_plain(torch.from_numpy(sid_m), torch.from_numpy(diag_m), CC, e, a)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w.numpy())
+
+
+def test_kernel_lane_code_unaligned_slab(host_check):
+    """cap_occ not a multiple of 4: the scalar loads, same result."""
+    rng = np.random.default_rng(77)
+    sid, diag, valid = _random_slabs(rng, 30, 2, 50, spread=50)
+    sid_m, diag_m = _masked(sid, diag, valid)
+    got = _host_tail(host_check, sid_m, diag_m, 8, 5, 1)
+    want = filter_tail_plain(torch.from_numpy(sid_m), torch.from_numpy(diag_m), 8, 5, 1)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w.numpy())
+
+
+@pytest.mark.parametrize("a", [0, 1, 2])
+@pytest.mark.parametrize("case", TAIL_CASE_NAMES)
+def test_kernel_lane_code_edges(host_check, case, a):
+    """Host build of the kernel's lane code == plain version == fem_tpu's
+    scalar model of the fold, exactly, on every lane of the edge cases."""
+    sid_m, diag_m = tail_cases(TAIL_SHAPE)[case]
+    CC, e = TAIL_SHAPE["CC"], TAIL_SHAPE["e"]
+    got = _host_tail(host_check, sid_m, diag_m, CC, e, a)
+    plain = filter_tail_plain(torch.from_numpy(sid_m), torch.from_numpy(diag_m), CC, e, a)
+    for g, w in zip(got, plain):
+        np.testing.assert_array_equal(g, w.numpy())
+    cands, ov = _scalar_tail(sid_m, diag_m, sid_m != SENT, CC, e, a)
+    assert _lists(got[0], got[1]) == cands
+    np.testing.assert_array_equal(got[2], ov)
+    if case == "overflow_by_one" and a == 0:
+        assert got[2].all() and (got[0] != SENT).all()
+    if case == "fills_exactly" and a == 0:
+        assert not got[2].any() and (got[0] != SENT).all()
+    if case == "gap_e_plus_1" and a == 0:
+        assert ((got[0] != SENT).sum(axis=1) == 15).all()
+
+
+@functools.lru_cache(maxsize=None)
+def _pallas_on_cases():
+    """fem_tpu's Pallas kernel (interpreted) on all cases' lanes in one call."""
+    cases = tail_cases(PALLAS_SHAPE)
+    sid = np.concatenate([c[0] for c in cases.values()])
+    diag = np.concatenate([c[1] for c in cases.values()])
+    out = filter_tail_pallas(sid, diag, PALLAS_SHAPE["CC"], PALLAS_SHAPE["e"], 1,
+                             interpret=True)
+    out = [np.asarray(x) for x in out]
+    res, o = {}, 0
+    for name, c in cases.items():
+        n = c[0].shape[0]
+        res[name] = [x[o : o + n] for x in out]
+        o += n
+    return res
+
+
+@pytest.mark.parametrize("case", TAIL_CASE_NAMES)
+def test_kernel_lane_code_edges_match_pallas(host_check, case):
+    sid_m, diag_m = tail_cases(PALLAS_SHAPE)[case]
+    got = _host_tail(host_check, sid_m, diag_m, PALLAS_SHAPE["CC"], PALLAS_SHAPE["e"], 1)
+    for g, w in zip(got, _pallas_on_cases()[case]):
+        np.testing.assert_array_equal(g, w)
 
 
 def test_generate_candidates_matches_jax_kernel_path():

@@ -16,15 +16,15 @@ import numpy as np
 import pytest
 import torch
 
-from fem_tpu import sim
-from fem_tpu.core.encoding import encode
 from fem_tpu.golden.model import GoldenMapper
-from fem_tpu.io.fastx import ReadBatch
-from fem_tpu_torch import kernels
+from fem_tpu_torch import kernels, sim
+from fem_tpu_torch.core.encoding import encode
+from fem_tpu_torch.io.fastx import ReadBatch
 from fem_tpu_torch.ops.filter_tail import filter_tail, filter_tail_plain
 from fem_tpu_torch.ops.types import BIG, SENTINEL_SID, device_index_from_host
 from fem_tpu_torch.ops.verify import verify_candidates, verify_candidates_plain
 from fem_tpu_torch.pipeline.engine import EngineConfig, MappingEngine
+from test_torch_cases import TAIL_CASE_NAMES, TAIL_SHAPE, slot_case, tail_cases
 
 
 @pytest.fixture
@@ -55,6 +55,19 @@ def test_filter_tail_kernel_matches_plain(cuda, NB, G, CAP, CC, e, a):
     got = filter_tail(sid, diag, CC, e, a)
     torch.cuda.synchronize()
     assert kernels.launches["filter_tail"] == 1
+    for g, w in zip(got, filter_tail_plain(sid, diag, CC, e, a)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("a", [0, 1, 2])
+@pytest.mark.parametrize("case", TAIL_CASE_NAMES)
+def test_filter_tail_kernel_edges(cuda, case, a):
+    """Valid counts 0..cap_occ around the 32-key register path, chains of
+    gaps e and e + 1, overflow by exactly one (tests/test_torch_cases.py)."""
+    sid, diag = (torch.from_numpy(x).to(cuda) for x in tail_cases(TAIL_SHAPE)[case])
+    CC, e = TAIL_SHAPE["CC"], TAIL_SHAPE["e"]
+    got = filter_tail(sid, diag, CC, e, a)
+    torch.cuda.synchronize()
     for g, w in zip(got, filter_tail_plain(sid, diag, CC, e, a)):
         assert torch.equal(g, w)
 
@@ -110,6 +123,30 @@ def test_myers_kernel_matches_plain(cuda, small_reference, small_index, e):
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert want.accepted.any() and not want.accepted.all()
+
+
+@pytest.mark.parametrize("used,Lmax", [(0, 128), (1, 128), (200, 128), (400, 128),
+                                       (400, 100), (400, 40)])
+@pytest.mark.parametrize("e", [0, 2, 5, 7])
+def test_myers_kernel_edges(cuda, small_reference, small_index, e, used, Lmax):
+    """Windows into the gap and past the array's ends, reads with N, rows
+    off a 16-byte boundary, and `used` of the 400 slots in use."""
+    _, ref = small_reference
+    index = device_index_from_host(small_index, ref, cuda)
+    args = [torch.from_numpy(x).to(cuda) for x in slot_case(ref, e, Lmax, 700 + 10 * e + Lmax)]
+    n_used = torch.tensor(used, device=cuda)
+    got = verify_candidates(index, *args, e, used=n_used)
+    torch.cuda.synchronize()
+    want = verify_candidates_plain(index, *args, e, used=n_used)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert not got.accepted[used:].any()
+
+
+def test_engine_defaults_to_cuda(cuda, small_reference, small_index, default_args):
+    _, ref = small_reference
+    engine = MappingEngine(default_args, ref, small_index, EngineConfig(batch_size=8))
+    assert engine.device.type == "cuda"
 
 
 def _batch(reads):

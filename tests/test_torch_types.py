@@ -57,18 +57,17 @@ def test_device_index_from_jax_equals_from_host(small_reference, small_index):
 
 
 def test_port_imports_without_jax(tmp_path):
-    """The port must run where JAX is not installed: import its engine and
-    kernel loader with every jax import made to fail, then map a few reads
-    on the CPU through the modules chip_smoke.py uses."""
+    """The port stands on its own files: import its engine, kernel loader
+    and chip_smoke, map a few reads on the CPU through the port's modules
+    only, and find neither jax nor fem_tpu among the loaded modules."""
     code = (
         "import sys\n"
-        "sys.modules['jax'] = None\n"
         "import fem_tpu_torch.pipeline.engine, fem_tpu_torch.kernels\n"
         "import chip_smoke\n"
-        "from fem_tpu import sim\n"
-        "from fem_tpu.config import FemArgs\n"
-        "from fem_tpu.index.build import build_index\n"
-        "from fem_tpu.io import fastx\n"
+        "from fem_tpu_torch import sim\n"
+        "from fem_tpu_torch.config import FemArgs\n"
+        "from fem_tpu_torch.index.build import build_index\n"
+        "from fem_tpu_torch.io import fastx\n"
         "from fem_tpu_torch.pipeline.engine import EngineConfig, MappingEngine\n"
         "seqs = sim.random_genome(20_000, num_seqs=1, seed=3)\n"
         "sim.write_fasta('ref.fa', seqs)\n"
@@ -78,8 +77,8 @@ def test_port_imports_without_jax(tmp_path):
         "                       EngineConfig(batch_size=16), device='cpu')\n"
         "recs, stats = engine.map_batch(next(fastx.stream_fastq_batches('reads.fq', 16)))\n"
         "assert stats.num_reads == 16 and stats.num_mapped_reads > 0, stats\n"
-        "bad = [m for m in sys.modules if m.startswith(('jax', 'fem_tpu.ops',"
-        " 'fem_tpu.pipeline', 'fem_tpu.parallel')) and sys.modules[m] is not None]\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'fem_tpu')"
+        " or m.startswith(('jax.', 'fem_tpu.'))]\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )
@@ -92,6 +91,28 @@ def test_port_imports_without_jax(tmp_path):
     assert proc.stdout.strip() == "ok"
 
 
+def test_port_sources_name_no_fem_tpu_import():
+    """No file of the port, and not chip_smoke.py, imports fem_tpu or jax
+    (comments that cite fem_tpu/...:line as the counterpart are fine)."""
+    import re
+
+    pat = re.compile(r"^\s*(from|import)\s+(fem_tpu|jax)(\.|\s|$)", re.M)
+    files = [os.path.join(_REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(os.path.join(_REPO, "fem_tpu_torch")):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    assert len(files) > 20
+    bad = [f for f in files if pat.search(open(f).read())]
+    assert not bad, bad
+
+
+def test_engine_device_defaults_to_cuda():
+    import inspect
+
+    from fem_tpu_torch.pipeline.engine import MappingEngine
+
+    assert inspect.signature(MappingEngine).parameters["device"].default == "cuda"
+
+
 def test_cuda_request_raises_without_cuda(small_reference, small_index, default_args):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -100,5 +121,7 @@ def test_cuda_request_raises_without_cuda(small_reference, small_index, default_
     _, ref = small_reference
     with pytest.raises(RuntimeError, match="CUDA"):
         MappingEngine(default_args, ref, small_index, device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        MappingEngine(default_args, ref, small_index)  # the default is the card
     with pytest.raises((RuntimeError, AssertionError)):
         ttypes.device_index_from_host(small_index, ref, "cuda")

@@ -20,6 +20,7 @@ from fem_tpu.ops.verify import compute_eq as jeq
 from fem_tpu.ops.verify_pallas import banded_myers_pallas
 from fem_tpu_torch import kernels
 from fem_tpu_torch.ops import types as ttypes
+from test_torch_cases import slot_case
 from fem_tpu_torch.ops.verify import (
     banded_myers,
     compute_eq,
@@ -99,39 +100,69 @@ def host_check():
         yield kernels.build_host_check(d)
 
 
+def _host_myers(host_check, index, v_sid, v_pos, v_lane, both, lens, e, used):
+    """The g++ build of the kernel's slot code."""
+    V = v_sid.shape[0]
+    NB, Lmax = both.shape
+    ed = np.empty(V, np.int32)
+    end = np.empty(V, np.int32)
+    vp = lambda x: x.ctypes.data_as(ctypes.c_void_p)
+    flat = index.ref_flat.numpy()
+    offs = index.ref_offsets.numpy()
+    both = np.ascontiguousarray(both)
+    host_check.fem_host_banded_myers(
+        vp(flat), flat.shape[0], vp(offs), offs.shape[0], vp(v_sid), vp(v_pos),
+        vp(v_lane), vp(both), vp(lens), NB, Lmax, e, V, used, vp(ed), vp(end),
+    )
+    return ed, end
+
+
 @pytest.mark.parametrize("e", [0, 3, 5, 7])
 def test_kernel_slot_code_matches_plain(host_check, small_reference, small_index, e):
     """Slots against reads copied from the reference with edits, plus
     out-of-range sids, lanes and positions (clamped alike)."""
     _, ref = small_reference
     index = ttypes.device_index_from_host(small_index, ref, "cpu")
-    rng = np.random.default_rng(500 + e)
-    NB, Lmax, V = 48, 128, 400
-    lens = rng.integers(30, Lmax + 1, NB).astype(np.int32)
-    lens[0] = 0
-    both = rng.integers(0, 5, (NB, Lmax)).astype(np.uint8)
-    v_lane = rng.integers(0, NB, V).astype(np.int32)
-    v_sid = rng.integers(0, ref.num_seqs, V).astype(np.int32)
-    v_pos = np.array([rng.integers(0, ref.lengths[s] - Lmax - 2 * e) for s in v_sid], np.int32)
-    for v in range(0, V, 2):  # planted matches: read = window diagonal + edits
-        lane = v_lane[v]
-        off = int(ref.offsets[v_sid[v]]) + int(v_pos[v]) + e
-        both[lane] = ref.flat_codes[off : off + Lmax]
-        for _ in range(rng.integers(0, e + 2)):
-            both[lane, rng.integers(0, Lmax)] = rng.integers(0, 4)
-    v_sid[1], v_lane[3], v_pos[5], v_pos[7] = 99, -2, -500, 2**30
-    ed = np.empty(V, np.int32)
-    end = np.empty(V, np.int32)
-    vp = lambda x: x.ctypes.data_as(ctypes.c_void_p)
-    flat = index.ref_flat.numpy()
-    offs = index.ref_offsets.numpy()
-    host_check.fem_host_banded_myers(
-        vp(flat), flat.shape[0], vp(offs), offs.shape[0], vp(v_sid), vp(v_pos),
-        vp(v_lane), vp(both), vp(lens), NB, Lmax, e, V, vp(ed), vp(end),
-    )
-    want = verify_candidates(
-        index, *(torch.from_numpy(x) for x in (v_sid, v_pos, v_lane, both, lens)), e
-    )
+    case = slot_case(ref, e, 128, 500 + e)
+    ed, end = _host_myers(host_check, index, *case, e, case[0].shape[0])
+    want = verify_candidates(index, *(torch.from_numpy(x) for x in case), e)
     np.testing.assert_array_equal(ed, want.edit_distance.numpy())
     np.testing.assert_array_equal(end, want.end_offset.numpy())
     assert want.accepted.any() and not want.accepted.all()
+
+
+@pytest.mark.parametrize("used,Lmax", [(0, 128), (1, 128), (200, 128), (400, 128),
+                                       (400, 100), (400, 40)])
+@pytest.mark.parametrize("e", [0, 2, 5, 7])
+def test_kernel_slot_code_edges(host_check, small_reference, small_index, e, used, Lmax):
+    """Host build of the kernel's slot code == plain version == fem_tpu's
+    banded_myers on windows gathered with numpy, exactly, with `used` of the
+    400 slots in use. Lmax 100 and 40 give read rows that start off a
+    16-byte boundary."""
+    _, ref = small_reference
+    index = ttypes.device_index_from_host(small_index, ref, "cpu")
+    case = slot_case(ref, e, Lmax, 700 + 10 * e + Lmax)
+    v_sid, v_pos, v_lane, both, lens = case
+    V = v_sid.shape[0]
+    ed, end = _host_myers(host_check, index, *case, e, used)
+    want = verify_candidates(index, *(torch.from_numpy(x) for x in case), e,
+                             used=torch.tensor(used))
+    np.testing.assert_array_equal(ed, want.edit_distance.numpy())
+    np.testing.assert_array_equal(end, want.end_offset.numpy())
+    assert not want.accepted[used:].any()
+    assert (want.edit_distance[used:] == e + 1).all() and (want.end_offset[used:] == -1).all()
+
+    flat = ref.flat_codes
+    sid = np.clip(v_sid, 0, ref.num_seqs - 1)
+    lane = np.clip(v_lane, 0, both.shape[0] - 1)
+    g = (ref.offsets[sid] + v_pos.astype(np.int64))[:, None] + np.arange(Lmax + 2 * e)
+    window = flat[np.clip(g, 0, flat.shape[0] - 1)]
+    j_ed, j_end, j_acc = jmyers(
+        jeq(jnp.asarray(window), jnp.asarray(both[lane]), e), jnp.asarray(lens[lane]), e
+    )
+    in_use = np.arange(V) < used
+    np.testing.assert_array_equal(ed[in_use], np.asarray(j_ed)[in_use])
+    np.testing.assert_array_equal(end[in_use], np.asarray(j_end)[in_use])
+    np.testing.assert_array_equal(want.accepted.numpy(), np.asarray(j_acc) & in_use)
+    if used == V:
+        assert want.accepted.any() and not want.accepted.all()
