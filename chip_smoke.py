@@ -20,14 +20,16 @@ exits non-zero without its result line:
               medians of the wrapper's call (Myers' includes its small
               accept compare): `ms` back to back (inputs as warm as the
               50 MB L2 keeps them), `ms_cold` with the L2 overwritten
-              before every launch; `ms_profiler` is the kernel alone, by
-              torch.profiler.
+              before every launch, `ms_single` one launch at a time on an
+              idle device (the host's launch gap is in it); `ms_profiler`
+              is the kernel alone, by torch.profiler.
   5. main     MappingEngine.map_stream on the card at e=5 a=1, B=16384,
               cap_occ=80, cap_cand=16, vpr=2, apr=0.85, tier 0 only. Both
               kernels must have launched, and the SAM record multiset and
               the five counters must equal fem_baseline's on the same reads.
   6. replay   each kernel again on the inputs the main path gave it in one
-              steady batch (captured there): equal to the plain version,
+              steady batch (captured while that batch is mapped once more,
+              after the timed and counted run): equal to the plain version,
               then timed warm and cold like phase 4. On the main path the
               slabs were written just before the kernel runs, so the warm
               number is the nearer one there.
@@ -65,10 +67,15 @@ KMER, STEP = 12, 3
 _DIG_MOD = 1 << 128
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 INT32_LANES_PER_SM = 64
-MYERS_OPS_PER_STEP = 17  # the recurrence of myers_core.h:step, nothing else
-# Times of the first versions of the kernels at the phase-4 shapes: another
-# call on the same card model (NVIDIA H100 80GB HBM3, 700 W), for reference.
-PREV_MS = {"filter_tail": 0.554, "banded_myers": 0.108}
+# int32 instructions a Myers step cannot do without: 11 for the recurrence of
+# myers_core.h:step with three-input logic (LOP3), 6 for the least Eq from
+# bit planes (three funnel shifts, three logic operations over xors and band).
+MYERS_OPS_PER_STEP = 17
+# Times of the first versions of the kernels at the phase-4 shapes, one
+# launch at a time (as `ms_single` here): another call on the same card
+# model (NVIDIA H100 80GB HBM3, 700 W). Logged for reference only; not in
+# the kernel table, whose numbers are all this run's.
+EARLIER_MS_SINGLE = {"filter_tail": 0.554, "banded_myers": 0.108}
 
 
 def log(msg: str) -> None:
@@ -114,16 +121,32 @@ def cuda_ms(fn, reps: int, cold: bool = False) -> float:
     return statistics.median(times)
 
 
-def profiler_ms(fn, kernel: str, reps: int = 20):
-    """Mean device time of the CUDA kernel whose name contains `kernel`
-    over `reps` calls of fn(), from torch.profiler; None if the profiler
-    recorded no such kernel."""
+def single_ms(fn, reps: int) -> float:
+    """Median CUDA-event time of one fn() at a time on an idle device, in
+    ms, after one warm-up call: the host's launch gaps are in it."""
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop))
+    return statistics.median(times)
+
+
+def profiler_ms(fn, kernel: str, reps: int = 20) -> float:
+    """Mean device time of the CUDA kernel whose name contains `kernel`,
+    from torch.profiler over reps + 2 calls of fn(). The trace may lose a
+    launch made while it starts, so at least `reps` of them must be in it."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
+        for _ in range(reps + 2):
             fn()
         torch.cuda.synchronize()
     total = count = 0
@@ -131,7 +154,9 @@ def profiler_ms(fn, kernel: str, reps: int = 20):
         if kernel in ev.key:
             total += getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
             count += ev.count
-    return total / count / 1e3 if count and total else None
+    check(reps <= count <= reps + 2 and total > 0,
+          f"torch.profiler saw {kernel} {count} times in {reps + 2} calls, {total} us")
+    return total / count / 1e3
 
 
 def max_abs_err(got, want) -> int:
@@ -292,8 +317,8 @@ def myers_bound(v_sid, v_pos, v_lane, both, lens, e: int, used) -> tuple[dict, s
     """Bound of one banded_myers call on these slots, and a line about them.
     Bytes: per slot in use 12 of indices, its window (length + 2e) and 8 of
     results; each read that is used, once; 8 of results per unused slot.
-    Operations: the Myers recurrence, 17 int32 operations a step, `length`
-    steps a slot in use."""
+    Operations: MYERS_OPS_PER_STEP int32 instructions a step (recurrence
+    and least Eq), `length` steps a slot in use."""
     V = v_sid.shape[0]
     NB, Lmax = both.shape
     n_used = V if used is None else min(int(used), V)
@@ -314,6 +339,7 @@ def compare_and_time(name: str, what: str, kernel, plain, plain_reps: int) -> di
     d = max_abs_err(got, want)
     check(d == 0, f"{name} differs from its plain version on {what}")
     return {"max_abs_err": d, "ms": cuda_ms(kernel, 20),
+            "ms_single": single_ms(kernel, 20),
             "ms_cold": cuda_ms(kernel, 20, cold=True),
             "ms_profiler": profiler_ms(kernel, f"{name}_kernel"),
             "plain_ms": cuda_ms(plain, plain_reps)}
@@ -332,8 +358,7 @@ def phase_kernels(ref, index, dev) -> list[dict]:
     # slab half in use, as the main path leaves it.
     row = {"name": "banded_myers", "route": "cuda",
            "source": "fem_tpu_torch/csrc/banded_myers.cu",
-           "replaces": "fem_tpu/ops/verify_pallas.py:122", "library_ms": None,
-           "prev_ms": PREV_MS["banded_myers"]}
+           "replaces": "fem_tpu/ops/verify_pallas.py:122", "library_ms": None}
     err = 0
     for e in (0, 2, 5, 7):
         args = _myers_inputs(ref, e, rng, dev)
@@ -359,16 +384,13 @@ def phase_kernels(ref, index, dev) -> list[dict]:
             log(f"[kernels] banded_myers synthetic: {note}")
     row["max_abs_err"] = max(err, row["max_abs_err"])
     rows.append(row)
-    log(f"[kernels] banded_myers at e={E}: {row['ms']:.4f} ms warm, {row['ms_cold']:.4f} ms "
-        f"cold, {row['ms_profiler']} ms by the profiler, plain {row['plain_ms']:.3f} ms, bound {row['bound_ms'] * 1e3:.2f} us "
-        f"by {row['bound_by']}")
+    _log_times("[kernels] banded_myers", f"at e={E}", row, row)
 
     # Filter tail: NB = 32,768 lanes, G = 3 groups, clustered slabs
     # (tests/test_filter_kernel.py:_random_slabs), plus cap_cand + cap_occ = 512.
     row = {"name": "filter_tail", "route": "cuda",
            "source": "fem_tpu_torch/csrc/filter_tail.cu",
-           "replaces": "fem_tpu/ops/filter_tail_pallas.py:213", "library_ms": None,
-           "prev_ms": PREV_MS["filter_tail"]}
+           "replaces": "fem_tpu/ops/filter_tail_pallas.py:213", "library_ms": None}
     err = 0
     NB, G = 2 * BATCH, STEP
     for CAP, CC, a in ((80, 16, 0), (80, 16, 1), (80, 16, 2), (480, 32, 1)):
@@ -395,11 +417,19 @@ def phase_kernels(ref, index, dev) -> list[dict]:
             log(f"[kernels] filter_tail synthetic: {note}")
     row["max_abs_err"] = max(err, row["max_abs_err"])
     rows.append(row)
-    log(f"[kernels] filter_tail at CAP=80 CC=16 a={A}: {row['ms']:.4f} ms warm, "
-        f"{row['ms_cold']:.4f} ms cold, {row['ms_profiler']} ms by the profiler, "
-        f"plain {row['plain_ms']:.3f} ms, bound "
-        f"{row['bound_ms'] * 1e3:.2f} us by {row['bound_by']}")
+    _log_times("[kernels] filter_tail", f"at CAP=80 CC=16 a={A}", row, row)
+    for r in rows:
+        log(f"[kernels] {r['name']}: its first version read "
+            f"{EARLIER_MS_SINGLE[r['name']]} ms one launch at a time in another call "
+            f"on the same card model; this run {r['ms_single']:.4f} ms so timed")
     return rows
+
+
+def _log_times(head: str, what: str, res: dict, bnd: dict) -> None:
+    log(f"{head} {what}: {res['ms']:.4f} ms warm, {res['ms_cold']:.4f} ms cold, "
+        f"{res['ms_single']:.4f} ms one launch at a time, {res['ms_profiler']:.4f} ms "
+        f"by the profiler, plain {res['plain_ms']:.3f} ms, bound "
+        f"{bnd['bound_ms'] * 1e3:.2f} us by {bnd['bound_by']}")
 
 
 def phase_replay(rows: list[dict], captured: dict) -> None:
@@ -434,13 +464,11 @@ def phase_replay(rows: list[dict], captured: dict) -> None:
 def _record_replay(row: dict, res: dict, bnd: dict, what: str) -> None:
     row["max_abs_err"] = max(row["max_abs_err"], res["max_abs_err"])
     row.update(ms_main_inputs=res["ms"], ms_main_inputs_cold=res["ms_cold"],
+               ms_main_inputs_single=res["ms_single"],
                ms_main_inputs_profiler=res["ms_profiler"],
                plain_ms_main_inputs=res["plain_ms"],
                bound_ms_main_inputs=bnd["bound_ms"], bound_by_main_inputs=bnd["bound_by"])
-    log(f"[replay] {row['name']} on the main path's inputs ({what}): "
-        f"{res['ms']:.4f} ms warm, {res['ms_cold']:.4f} ms cold, "
-        f"{res['ms_profiler']} ms by the profiler, plain "
-        f"{res['plain_ms']:.3f} ms, bound {bnd['bound_ms'] * 1e3:.2f} us by {bnd['bound_by']}")
+    _log_times(f"[replay] {row['name']}", f"on the main path's inputs ({what})", res, bnd)
 
 
 def _capture_first_call(module, attr: str, into: dict, key: str):
@@ -488,17 +516,14 @@ def phase_main(ref, index, paths, dev) -> tuple[dict, dict]:
     warm_s = time.perf_counter() - t0
     engine.stage_timer = StageTimer(torch.device(dev))
     steady = MappingStats()
-    captured: dict = {}  # the kernels' inputs in the first steady batch
-    undo = [_capture_first_call(candidates_mod, "filter_tail", captured, "filter_tail"),
-            _capture_first_call(engine_mod, "verify_candidates", captured, "banded_myers")]
     t0 = time.perf_counter()
+    first_steady = None  # the first steady batch's records
     for r, st in engine.map_stream(batches[1:]):
+        first_steady = r if first_steady is None else first_steady
         recs.extend(r)
         steady += st
     steady_s = time.perf_counter() - t0
     launches = dict(kernels.launches)
-    for restore in undo:
-        restore()
     peak = torch.cuda.max_memory_allocated(dev)
     total += steady
     log(f"[main] kernel launches on the main path: {launches}")
@@ -509,6 +534,17 @@ def phase_main(ref, index, paths, dev) -> tuple[dict, dict]:
         f"first batch {warm_s:.3f} s) | host-fallback reads {engine.fallback_reads} | "
         f"peak device memory {peak / 2**30:.3f} GiB")
     log(f"[main] device stage ms over {len(batches) - 1} steady batches: {stage_ms}")
+
+    # The kernels' inputs in one steady batch, for phase 6: that batch is
+    # mapped once more, outside the timed and counted run above.
+    captured: dict = {}
+    undo = [_capture_first_call(candidates_mod, "filter_tail", captured, "filter_tail"),
+            _capture_first_call(engine_mod, "verify_candidates", captured, "banded_myers")]
+    again = [r for rs, _ in engine.map_stream(batches[1:2]) for r in rs]
+    for restore in undo:
+        restore()
+    check(digest_lines(again) == digest_lines(first_steady),
+          "the batch mapped again for capture gave other records")
 
     # The oracle: fem_baseline (byte-identical to the reference binary) on
     # the same reads; record multiset and counters must be equal.

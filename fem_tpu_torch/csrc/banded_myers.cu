@@ -5,8 +5,11 @@
 //
 // What bounds it: integer operations. A slot moves some 250 bytes (window,
 // read, indices, two results) but runs a chain of `length` dependent Myers
-// steps of about 14 32-bit operations each, so the least time is the
-// slots' steps times those operations over the card's int32 rate.
+// steps. A step cannot do with fewer than 17 32-bit instructions: 11 for
+// the recurrence of myers_core.h:step with three-input logic (LOP3), 6 for
+// the least Eq from bit planes (three funnel shifts, three logic operations
+// over the xors and the band mask). The least time is the slots' steps
+// times 17 over the card's int32 rate (chip_smoke.py: MYERS_OPS_PER_STEP).
 // Design (myers_core.h): one thread per (read, candidate) slot with VP, VN
 // and nerr in registers. The window comes straight from the flat reference
 // at ref_offsets[sid] + pos and the read from row v_lane[v] of the batch,

@@ -130,6 +130,7 @@ def test_fastx_long_read_takes_python_parser(tmp_path):
 
 
 def test_sam_header_and_record_equal(files):
+    """Header text and strand flag; the records are the native emitter's."""
     ref = tfastx.read_fasta(files["t"]["fa"])
     lens = ref.lengths.tolist()
     assert jsam.sam_header_text(ref.names, lens) == tsam.sam_header_text(ref.names, lens)
