@@ -22,17 +22,51 @@ exits non-zero without its result line:
               50 MB L2 keeps them), `ms_cold` with the L2 overwritten
               before every launch, `ms_single` one launch at a time on an
               idle device (the host's launch gap is in it); `ms_profiler`
-              is the kernel alone, by torch.profiler.
-  5. main     MappingEngine.map_stream on the card at e=5 a=1, B=16384,
-              cap_occ=80, cap_cand=16, vpr=2, apr=0.85, tier 0 only. Both
-              kernels must have launched, and the SAM record multiset and
-              the five counters must equal fem_baseline's on the same reads.
-  6. replay   each kernel again on the inputs the main path gave it in one
-              steady batch (captured while that batch is mapped once more,
-              after the timed and counted run): equal to the plain version,
-              then timed warm and cold like phase 4. On the main path the
-              slabs were written just before the kernel runs, so the warm
-              number is the nearer one there.
+              is the kernel alone, by torch.profiler. Besides the tier-0
+              shapes of the benign point: the adversarial point's tier-0
+              shapes (the filter tail at 80 + 64 over 32,768 lanes, banded
+              Myers at 262,144 slots over 32,768 lanes); the filter tail
+              at the default ladder's tier-1 (cap_occ 640 + cap_cand 512)
+              and tier-2 (5120 + 4096, whose scratch is a global-memory
+              workspace) shapes; banded Myers at tier 2's 262,144 slots
+              with 300 in use: each a row of its own. The filter tail at
+              4096 + 4096 (the widest shared-memory slab) and at 12288 +
+              4096: equality.
+  5. main     the engine on the card through the pipelined
+              MappingEngine.map_stream (depth EngineConfig.pipeline_depth)
+              with the default retry ladder, twice:
+              benign       the bench point, e=5 a=1, B=16384, cap_occ=80,
+                           cap_cand=16, vpr=2, apr=0.85. After the counted
+                           run the same batches are mapped one at a time
+                           (map_batch in a loop) and pipelined again, in
+                           turns, and both rates are printed.
+              adversarial  a 46 Mb genome with 3% satellite arrays
+                           (bench.py's adversarial line), 65,536 reads,
+                           cap_occ=80, cap_cand=64, vpr=8, apr=8: the
+                           ladder's own path. Reads must be retried, the
+                           filter tail must launch above cap_cand +
+                           cap_occ = 512, and tier 2 must be reached.
+              In each the kernels must have launched (counts set to 0
+              before the run and read after it; a row's launches are the
+              wrapper's own count at that row's shape), and the SAM record
+              multiset and the five counters must equal fem_baseline's on
+              the same reads. Each point is then mapped again for its
+              steady rates, and once under torch.profiler for the device's
+              busy and idle share of the wall; every such run must give
+              the counted run's records. Last, the benign reads go once
+              through an engine without a ladder (tiers=()), read from
+              the FASTQ file by a ThreadedBatchSource: its overflow reads
+              must reach the host mapper and its records must be the
+              counted run's.
+  6. replay   each kernel again on the inputs a main path gave it (the
+              first tier-0 calls and the first tier-1 filter-tail call of
+              the benign stream; the first tier-0, tier-1 and tier-2
+              calls of the adversarial one), captured while the stream is
+              mapped once
+              more after the timed and counted runs: equal to the plain
+              version, then timed warm and cold like phase 4. On the main
+              path the slabs were written just before the kernel runs, so
+              the warm number is the nearer one there.
 
 Each kernel's bound is the least time the card could take for the same
 inputs: the bytes it must move (inputs once, outputs once) over 3.35 TB/s,
@@ -46,6 +80,7 @@ The line before the last is the kernel table as JSON; the last line is
 
 from __future__ import annotations
 
+import collections
 import hashlib
 import json
 import os
@@ -54,6 +89,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -76,6 +112,28 @@ MYERS_OPS_PER_STEP = 17
 # model (NVIDIA H100 80GB HBM3, 700 W). Logged for reference only; not in
 # the kernel table, whose numbers are all this run's.
 EARLIER_MS_SINGLE = {"filter_tail": 0.554, "banded_myers": 0.108}
+# The default retry ladder both operating points below derive (cap_occ 80,
+# B 16,384): (reads, cap_occ, cap_cand) of a tier, and tier 2's verify slots.
+TIER1 = (512, 640, 512)
+TIER2 = (64, 5120, 4096)
+TIER2_VERIFY_SLOTS = 262_144
+# The adversarial point's tier 0: (cap_occ, cap_cand), and its verify slots
+# (2 * B * verify_per_read, as many as tier 2's but over 2 * B lanes).
+ADV_TAIL = (80, 64)
+ADV_VERIFY_SLOTS = 262_144
+# Which launches a row of the kernel table counts: the kernel, a test of
+# the shape kernels.count_launch was given, and the main path it is read on.
+ROW_LAUNCHES = {
+    "filter_tail": ("filter_tail", lambda s: s == (80, 16), "benign"),
+    "banded_myers": ("banded_myers", lambda s: s == (4 * BATCH, 2 * BATCH), "benign"),
+    "filter_tail_adv": ("filter_tail", lambda s: s == ADV_TAIL, "adversarial"),
+    "banded_myers_adv": ("banded_myers",
+                         lambda s: s == (ADV_VERIFY_SLOTS, 2 * BATCH), "adversarial"),
+    "filter_tail_tier1": ("filter_tail", lambda s: s == TIER1[1:], "adversarial"),
+    "filter_tail_tier2": ("filter_tail", lambda s: s == TIER2[1:], "adversarial"),
+    "banded_myers_tier2": ("banded_myers", lambda s: s[0] == TIER2_VERIFY_SLOTS
+                           and s[1] <= 2 * TIER2[0], "adversarial"),
+}
 
 
 def log(msg: str) -> None:
@@ -99,7 +157,7 @@ def flush_l2() -> None:
     _l2_scratch.add_(1)
 
 
-def cuda_ms(fn, reps: int, cold: bool = False) -> float:
+def cuda_ms(fn, reps: int, cold: bool = False, samples: int = 5) -> float:
     """Median time of fn() in ms by CUDA events, after one warm-up call.
     Warm: a sample is a run of `reps` calls between two events, over
     `reps`; the device is first kept busy for a few ms, so the host has
@@ -107,7 +165,7 @@ def cuda_ms(fn, reps: int, cold: bool = False) -> float:
     in the time. Cold: the L2 is overwritten before every timed call."""
     fn()
     times = []
-    for _ in range(reps if cold else 5):
+    for _ in range(reps if cold else samples):
         for _ in range(1 if cold else 24):
             flush_l2()
         start = torch.cuda.Event(enable_timing=True)
@@ -139,24 +197,29 @@ def single_ms(fn, reps: int) -> float:
 
 def profiler_ms(fn, kernel: str, reps: int = 20) -> float:
     """Mean device time of the CUDA kernel whose name contains `kernel`,
-    from torch.profiler over reps + 2 calls of fn(). The trace may lose a
-    launch made while it starts, so at least `reps` of them must be in it."""
+    from torch.profiler over reps + 10 calls of fn(). The trace loses the
+    launches made while it starts (more of them the shorter the kernel),
+    so at least `reps` must be in it; a trace that lost more is taken
+    again, three times at most."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps + 2):
-            fn()
+    for attempt in range(3):
         torch.cuda.synchronize()
-    total = count = 0
-    for ev in prof.key_averages():
-        if kernel in ev.key:
-            total += getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
-            count += ev.count
-    check(reps <= count <= reps + 2 and total > 0,
-          f"torch.profiler saw {kernel} {count} times in {reps + 2} calls, {total} us")
-    return total / count / 1e3
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps + 10):
+                fn()
+            torch.cuda.synchronize()
+        total = count = 0
+        for ev in prof.key_averages():
+            if kernel in ev.key:
+                total += getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
+                count += ev.count
+        if reps <= count <= reps + 10 and total > 0:
+            return total / count / 1e3
+        log(f"[profiler] saw {kernel} {count} times in {reps + 10} calls, {total} us "
+            f"(attempt {attempt + 1})")
+    raise RuntimeError(f"torch.profiler lost launches of {kernel} in three traces")
 
 
 def max_abs_err(got, want) -> int:
@@ -242,7 +305,9 @@ def phase_build() -> None:
     for line in kernels.build_log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            name = re.search(r"(filter_tail_kernelILi\d+|banded_myers_kernel)", m.group(1))
+            name = re.search(
+                r"(filter_tail_kernelILi\d+|filter_tail_ws_kernel|banded_myers_kernel)",
+                m.group(1))
             name = name.group(1) if name else m.group(1)
         elif "registers" in line or "spill" in line:
             log(f"[build] ptxas {name}: {line.replace('ptxas info    :', '').strip()}")
@@ -251,43 +316,63 @@ def phase_build() -> None:
     log(f"[build] {lib} and {base} built in {time.perf_counter() - t0:.1f} s")
 
 
-def phase_setup(workdir: str):
+def phase_setup(workdir: str, tag: str, seqs, read_seed: int):
+    """Reference, index and reads of one operating point, as files under
+    workdir/tag (fem_baseline reads them) and in memory."""
     from fem_tpu_torch import sim
     from fem_tpu_torch.index.build import build_index
     from fem_tpu_torch.index.storage import save_index
     from fem_tpu_torch.io import fastx
 
     t0 = time.perf_counter()
-    seqs = sim.random_genome(GENOME_BP, num_seqs=1, seed=7, repeat_fraction=0.3)
-    paths = {k: os.path.join(workdir, f) for k, f in
+    os.makedirs(os.path.join(workdir, tag))
+    paths = {k: os.path.join(workdir, tag, f) for k, f in
              (("fa", "ref.fa"), ("fq", "reads.fq"), ("ix", "ref.index"))}
     sim.write_fasta(paths["fa"], seqs)
     ref = fastx.read_fasta(paths["fa"])
     index = build_index(ref, KMER, STEP)
     save_index(index, paths["ix"])
-    reads = sim.simulate_reads(seqs, NUM_READS, read_length=100, max_errors=E, seed=9)
+    reads = sim.simulate_reads(seqs, NUM_READS, read_length=100, max_errors=E, seed=read_seed)
     sim.write_fastq(paths["fq"], reads)
-    log(f"[setup] {GENOME_BP / 1e6:.0f} Mb genome, {index.num_occurrences} occurrences, "
-        f"{NUM_READS} reads in {time.perf_counter() - t0:.1f} s")
+    freq = np.diff(index.lookup.astype(np.int64))
+    log(f"[setup] {tag}: {GENOME_BP / 1e6:.0f} Mb genome, {index.num_occurrences} "
+        f"occurrences, largest seed frequency {int(freq.max())}, {NUM_READS} reads "
+        f"in {time.perf_counter() - t0:.1f} s")
     return ref, index, paths
 
 
-def _myers_inputs(ref, e: int, rng, dev):
+def benign_genome():
+    """The bench operating point (bench.py, BASELINE.json config 3)."""
+    from fem_tpu_torch import sim
+
+    return sim.random_genome(GENOME_BP, num_seqs=1, seed=7, repeat_fraction=0.3)
+
+
+def satellite_genome():
+    """bench.py's adversarial line: 3% of the genome in satellite arrays."""
+    from fem_tpu_torch import sim
+
+    return sim.satellite_genome(GENOME_BP, num_seqs=2, seed=13, satellite_fraction=0.03,
+                                unit_range=(24, 160), copies_range=(48, 512))
+
+
+def _myers_inputs(ref, e: int, rng, dev, NB: int = 2 * BATCH, V: int | None = None):
     """Verify slots at the main path's shape: 2 slots per read-strand lane
-    of a 16,384-read batch, Lmax 128. Lane l's read is the diagonal of slot
-    2l's reference window with up to e+1 substitutions (the mutated copies
-    of tests/test_verify_pallas.py), so part of the slots are accepted;
-    slot 2l+1 points elsewhere, a few of them into the trailing gap."""
-    NB, Lmax = 2 * BATCH, 128
-    V = 2 * NB
+    of a 16,384-read batch, Lmax 128 (or V slots over NB lanes). Lane l's
+    read is the diagonal of slot 2l's reference window with up to e+1
+    substitutions (the mutated copies of tests/test_verify_pallas.py), so
+    part of the slots are accepted; slot 2l+1 points elsewhere, a few of
+    them into the trailing gap."""
+    Lmax = 128
+    V = 2 * NB if V is None else V
     L0 = int(ref.lengths[0])
-    v_lane = np.arange(V, dtype=np.int32) // 2
+    v_lane = (np.arange(V, dtype=np.int32) // 2) % NB
     v_sid = np.zeros(V, np.int32)
     v_pos = rng.integers(0, L0 - Lmax - 2 * e, V).astype(np.int32)
     v_pos[1:64:2] = rng.integers(L0 - Lmax, L0 + 40, 32)
     lens = np.full(NB, 100, np.int32)
     lens[NB // 2 :] = rng.integers(40, Lmax + 1, NB - NB // 2)
-    off = int(ref.offsets[0]) + v_pos[0::2].astype(np.int64) + e
+    off = int(ref.offsets[0]) + v_pos[0 : 2 * NB : 2].astype(np.int64) + e
     both = ref.flat_codes[off[:, None] + np.arange(Lmax)[None, :]]
     n_edits = rng.integers(0, e + 2, NB)
     for j in range(e + 1):
@@ -332,8 +417,10 @@ def myers_bound(v_sid, v_pos, v_lane, both, lens, e: int, used) -> tuple[dict, s
     return bound(nbytes, int(steps.sum()) * MYERS_OPS_PER_STEP), note
 
 
-def compare_and_time(name: str, what: str, kernel, plain, plain_reps: int) -> dict:
-    """kernel() against plain() on the same inputs (exact), then the times."""
+def compare_and_time(name: str, what: str, kernel, plain, plain_reps: int,
+                     plain_samples: int = 5, cuda_name: str | None = None) -> dict:
+    """kernel() against plain() on the same inputs (exact), then the times.
+    `cuda_name` is the CUDA kernel's name in the profiler's trace."""
     got, want = kernel(), plain()
     torch.cuda.synchronize()
     d = max_abs_err(got, want)
@@ -341,13 +428,13 @@ def compare_and_time(name: str, what: str, kernel, plain, plain_reps: int) -> di
     return {"max_abs_err": d, "ms": cuda_ms(kernel, 20),
             "ms_single": single_ms(kernel, 20),
             "ms_cold": cuda_ms(kernel, 20, cold=True),
-            "ms_profiler": profiler_ms(kernel, f"{name}_kernel"),
-            "plain_ms": cuda_ms(plain, plain_reps)}
+            "ms_profiler": profiler_ms(kernel, cuda_name or f"{name}_kernel"),
+            "plain_ms": cuda_ms(plain, plain_reps, samples=plain_samples)}
 
 
 def phase_kernels(ref, index, dev) -> list[dict]:
     from fem_tpu_torch.ops.filter_tail import filter_tail, filter_tail_plain
-    from fem_tpu_torch.ops.types import BIG, SENTINEL_SID, device_index_from_host
+    from fem_tpu_torch.ops.types import device_index_from_host
     from fem_tpu_torch.ops.verify import verify_candidates, verify_candidates_plain
 
     rng = np.random.default_rng(2024)
@@ -394,11 +481,7 @@ def phase_kernels(ref, index, dev) -> list[dict]:
     err = 0
     NB, G = 2 * BATCH, STEP
     for CAP, CC, a in ((80, 16, 0), (80, 16, 1), (80, 16, 2), (480, 32, 1)):
-        sid = rng.integers(0, 3, (NB, G, CAP))
-        diag = rng.integers(0, 40, (NB, G, CAP)) + rng.integers(0, 4, (NB, G, CAP))
-        valid = rng.random((NB, G, CAP)) < 0.4
-        sid = torch.from_numpy(np.where(valid, sid, SENTINEL_SID).astype(np.int32)).to(dev)
-        diag = torch.from_numpy(np.where(valid, diag, BIG).astype(np.int32)).to(dev)
+        sid, diag = _clustered_slabs(rng, NB, G, CAP, dev)
         got = filter_tail(sid, diag, CC, E, a)
         want = filter_tail_plain(sid, diag, CC, E, a)
         torch.cuda.synchronize()
@@ -422,6 +505,141 @@ def phase_kernels(ref, index, dev) -> list[dict]:
         log(f"[kernels] {r['name']}: its first version read "
             f"{EARLIER_MS_SINGLE[r['name']]} ms one launch at a time in another call "
             f"on the same card model; this run {r['ms_single']:.4f} ms so timed")
+    rows += _adversarial_rows(ref, dindex, rng, dev)
+    rows += _tier_rows(ref, dindex, rng, dev)
+    return rows
+
+
+def _clustered_slabs(rng, NB: int, G: int, CAP: int, dev):
+    """Tier-0 slabs: 40% of the slots valid, three chromosomes, diagonals
+    clustered within 43 (tests/test_filter_kernel.py:_random_slabs)."""
+    from fem_tpu_torch.ops.types import BIG, SENTINEL_SID
+
+    sid = rng.integers(0, 3, (NB, G, CAP))
+    diag = rng.integers(0, 40, (NB, G, CAP)) + rng.integers(0, 4, (NB, G, CAP))
+    valid = rng.random((NB, G, CAP)) < 0.4
+    return (torch.from_numpy(np.where(valid, sid, SENTINEL_SID).astype(np.int32)).to(dev),
+            torch.from_numpy(np.where(valid, diag, BIG).astype(np.int32)).to(dev))
+
+
+def _adversarial_rows(ref, dindex, rng, dev) -> list[dict]:
+    """The kernels at the adversarial point's tier-0 shapes, where most of
+    its reads go: the filter tail at cap_occ 80 + cap_cand 64 over 32,768
+    lanes (the kernel's 256-key slab), banded Myers at 262,144 slots over
+    32,768 lanes. Each a row of the kernel table."""
+    from fem_tpu_torch.ops.filter_tail import filter_tail, filter_tail_plain
+    from fem_tpu_torch.ops.verify import verify_candidates, verify_candidates_plain
+
+    NB, (CAP, CC) = 2 * BATCH, ADV_TAIL
+    sid, diag = _clustered_slabs(rng, NB, STEP, CAP, dev)
+    tail = {"name": "filter_tail_adv", "route": "cuda",
+            "source": "fem_tpu_torch/csrc/filter_tail.cu",
+            "replaces": "fem_tpu/ops/filter_tail_pallas.py:213", "library_ms": None}
+    tail.update(compare_and_time(
+        "filter_tail", f"synthetic slabs at {CAP} + {CC}",
+        lambda: filter_tail(sid, diag, CC, E, A),
+        lambda: filter_tail_plain(sid, diag, CC, E, A), 3))
+    bnd, note = tail_bound(sid, diag, CC)
+    tail.update(bnd)
+    log(f"[kernels] filter_tail_adv NB={NB} G={STEP} CAP={CAP} CC={CC} e={E} a={A}: {note}")
+    _log_times("[kernels] filter_tail_adv", "synthetic", tail, tail)
+
+    V = ADV_VERIFY_SLOTS
+    args = _myers_inputs(ref, E, rng, dev, NB=NB, V=V)
+    myers = {"name": "banded_myers_adv", "route": "cuda",
+             "source": "fem_tpu_torch/csrc/banded_myers.cu",
+             "replaces": "fem_tpu/ops/verify_pallas.py:122", "library_ms": None}
+    half = torch.tensor(V // 2, device=dev)
+    got = verify_candidates(dindex, *args, E, used=half)
+    want = verify_candidates_plain(dindex, *args, E, used=half)
+    torch.cuda.synchronize()
+    d = max_abs_err(got, want)
+    n_acc = int(want.accepted.sum())
+    log(f"[kernels] banded_myers_adv e={E} V={V} lanes={NB} used={V // 2}: "
+        f"max_abs_err {d}, {n_acc} accepted")
+    check(d == 0, "banded_myers differs from its plain version at the adversarial shape")
+    check(0 < n_acc < V, "banded_myers_adv check accepts all or none")
+    del got, want
+    myers.update(compare_and_time(
+        "banded_myers", "synthetic slots at the adversarial shape",
+        lambda: verify_candidates(dindex, *args, E),
+        lambda: verify_candidates_plain(dindex, *args, E), 2, 3))
+    bnd, note = myers_bound(*args, E, None)
+    myers.update(bnd)
+    log(f"[kernels] banded_myers_adv synthetic: {note}")
+    _log_times("[kernels] banded_myers_adv", f"at e={E}", myers, myers)
+    return [tail, myers]
+
+
+def _wide_slabs(rng, NB: int, G: int, CAP: int, dev):
+    """Slabs of a retry tier: 40% of the slots valid, three chromosomes,
+    diagonals spread over 3 * CAP so that hundreds of candidates survive."""
+    from fem_tpu_torch.ops.types import BIG, SENTINEL_SID
+
+    sid = rng.integers(0, 3, (NB, G, CAP))
+    diag = rng.integers(0, 3 * CAP, (NB, G, CAP))
+    valid = rng.random((NB, G, CAP)) < 0.4
+    return (torch.from_numpy(np.where(valid, sid, SENTINEL_SID).astype(np.int32)).to(dev),
+            torch.from_numpy(np.where(valid, diag, BIG).astype(np.int32)).to(dev))
+
+
+def _tier_rows(ref, dindex, rng, dev) -> list[dict]:
+    """The kernels at the default ladder's shapes above tier 0 (the ladder
+    MappingEngine derives from cap_occ=80, cap_cand=16, B=16384: tier 1 is
+    512 reads at 640 + 512, tier 2 is 64 reads at 5120 + 4096 with 262,144
+    verify slots), each a row of the kernel table."""
+    from fem_tpu_torch.ops.filter_tail import SMEM_SLAB, filter_tail, filter_tail_plain
+    from fem_tpu_torch.ops.verify import verify_candidates, verify_candidates_plain
+
+    rows = []
+    tail = {"route": "cuda", "source": "fem_tpu_torch/csrc/filter_tail.cu",
+            "replaces": "fem_tpu/ops/filter_tail_pallas.py:213", "library_ms": None}
+    shapes = (("filter_tail_tier1", 2 * TIER1[0], *TIER1[1:], 3, 5),
+              ("filter_tail_tier2", 2 * TIER2[0], *TIER2[1:], 1, 2))
+    for name, NB, CAP, CC, plain_reps, plain_samples in shapes:
+        sid, diag = _wide_slabs(rng, NB, STEP, CAP, dev)
+        in_smem = CAP + CC <= SMEM_SLAB
+        row = dict(tail, name=name)
+        row.update(compare_and_time(
+            "filter_tail", f"synthetic slabs at {CAP} + {CC}",
+            lambda: filter_tail(sid, diag, CC, E, A),
+            lambda: filter_tail_plain(sid, diag, CC, E, A), plain_reps, plain_samples,
+            cuda_name="filter_tail_kernel" if in_smem else "filter_tail_ws_kernel"))
+        bnd, note = tail_bound(sid, diag, CC)
+        row.update(bnd)
+        rows.append(row)
+        log(f"[kernels] {name} NB={NB} G={STEP} CAP={CAP} CC={CC} e={E} a={A}, scratch in "
+            f"{'shared memory' if in_smem else 'a global workspace'}: {note}")
+        _log_times(f"[kernels] {name}", "synthetic", row, row)
+    # Equality at the widest shared-memory slab and far above it.
+    for NB, CAP, CC in ((128, 4096, 4096), (8, 12288, 4096)):
+        sid, diag = _wide_slabs(rng, NB, STEP, CAP, dev)
+        got = filter_tail(sid, diag, CC, E, A)
+        want = filter_tail_plain(sid, diag, CC, E, A)
+        torch.cuda.synchronize()
+        d = max_abs_err(got, want)
+        ms = cuda_ms(lambda: filter_tail(sid, diag, CC, E, A), 10)
+        log(f"[kernels] filter_tail NB={NB} G={STEP} CAP={CAP} CC={CC}: max_abs_err {d}, "
+            f"{int((got[0] != 2**30).sum(dim=1).float().mean())} candidates a lane kept, "
+            f"{ms:.4f} ms warm")
+        check(d == 0, f"filter_tail differs from its plain version at {CAP} + {CC}")
+
+    # Banded Myers at tier 2: 2 * 64 lanes, 262,144 slots, 300 in use.
+    NB, V, n_used = 2 * TIER2[0], TIER2_VERIFY_SLOTS, 300
+    args = _myers_inputs(ref, E, rng, dev, NB=NB, V=V)
+    used = torch.tensor(n_used, device=dev)
+    row = {"name": "banded_myers_tier2", "route": "cuda",
+           "source": "fem_tpu_torch/csrc/banded_myers.cu",
+           "replaces": "fem_tpu/ops/verify_pallas.py:122", "library_ms": None}
+    row.update(compare_and_time(
+        "banded_myers", "tier-2 slots",
+        lambda: verify_candidates(dindex, *args, E, used=used),
+        lambda: verify_candidates_plain(dindex, *args, E, used=used), 2, 3))
+    bnd, note = myers_bound(*args, E, used)
+    row.update(bnd)
+    rows.append(row)
+    log(f"[kernels] banded_myers_tier2: {note}")
+    _log_times("[kernels] banded_myers_tier2", f"at e={E}", row, row)
     return rows
 
 
@@ -432,122 +650,167 @@ def _log_times(head: str, what: str, res: dict, bnd: dict) -> None:
         f"{bnd['bound_ms'] * 1e3:.2f} us by {bnd['bound_by']}")
 
 
-def phase_replay(rows: list[dict], captured: dict) -> None:
-    """Each kernel on the inputs one steady batch of the main path gave it."""
-    from fem_tpu_torch.ops.filter_tail import filter_tail, filter_tail_plain
+def phase_replay(rows: list[dict], captured: dict, suffix: str) -> None:
+    """Each kernel on the inputs one main path gave it; `captured` maps a
+    kernel-table row's name to the arguments of one wrapper call, and the
+    row gains ms_<suffix> and the like."""
+    from fem_tpu_torch.ops.filter_tail import SMEM_SLAB, filter_tail, filter_tail_plain
     from fem_tpu_torch.ops.verify import verify_candidates, verify_candidates_plain
 
     by_name = {r["name"]: r for r in rows}
-    check(set(captured) == set(by_name), f"captured inputs of {sorted(captured)} only")
-
-    (sid, diag, cc, e, a), _ = captured["filter_tail"]
-    res = compare_and_time("filter_tail", "the main path's slabs",
-                           lambda: filter_tail(sid, diag, cc, e, a),
-                           lambda: filter_tail_plain(sid, diag, cc, e, a), 3)
-    bnd, note = tail_bound(sid, diag, cc)
-    _record_replay(by_name["filter_tail"], res, bnd,
-                   f"NB={sid.shape[0]} G={sid.shape[1]} CAP={sid.shape[2]} CC={cc} "
-                   f"e={e} a={a}; {note}")
-
-    (dindex, v_sid, v_pos, v_lane, both, lens, e), kw = captured["banded_myers"]
-    used = kw["used"]
-    res = compare_and_time(
-        "banded_myers", "the main path's slab",
-        lambda: verify_candidates(dindex, v_sid, v_pos, v_lane, both, lens, e, used=used),
-        lambda: verify_candidates_plain(dindex, v_sid, v_pos, v_lane, both, lens, e, used=used),
-        5)
-    bnd, note = myers_bound(v_sid, v_pos, v_lane, both, lens, e, used)
-    _record_replay(by_name["banded_myers"], res, bnd,
-                   f"V={v_sid.shape[0]} Lmax={both.shape[1]} e={e}; {note}")
-
-
-def _record_replay(row: dict, res: dict, bnd: dict, what: str) -> None:
-    row["max_abs_err"] = max(row["max_abs_err"], res["max_abs_err"])
-    row.update(ms_main_inputs=res["ms"], ms_main_inputs_cold=res["ms_cold"],
-               ms_main_inputs_single=res["ms_single"],
-               ms_main_inputs_profiler=res["ms_profiler"],
-               plain_ms_main_inputs=res["plain_ms"],
-               bound_ms_main_inputs=bnd["bound_ms"], bound_by_main_inputs=bnd["bound_by"])
-    _log_times(f"[replay] {row['name']}", f"on the main path's inputs ({what})", res, bnd)
-
-
-def _capture_first_call(module, attr: str, into: dict, key: str):
-    """Wrap module.attr so that its first call's arguments are kept (tensors
-    cloned) in into[key]; returns the function that undoes the wrap."""
-    real = getattr(module, attr)
-    keep = lambda x: x.clone() if torch.is_tensor(x) else x
-
-    def wrapped(*args, **kwargs):
-        if key not in into:
-            into[key] = ([keep(x) for x in args], {k: keep(v) for k, v in kwargs.items()})
-        return real(*args, **kwargs)
-
-    setattr(module, attr, wrapped)
-    return lambda: setattr(module, attr, real)
+    for key, (args, kw) in captured.items():
+        if key.startswith("filter_tail"):
+            sid, diag, cc, e, a = args
+            wide = sid.shape[2] + cc
+            slow = wide > 4096  # the plain version's loop is seconds long there
+            res = compare_and_time(
+                "filter_tail", f"the {suffix} of {key}",
+                lambda: filter_tail(sid, diag, cc, e, a),
+                lambda: filter_tail_plain(sid, diag, cc, e, a),
+                1 if slow else 3, 2 if slow else 5,
+                cuda_name="filter_tail_kernel" if wide <= SMEM_SLAB else "filter_tail_ws_kernel")
+            bnd, note = tail_bound(sid, diag, cc)
+            what = (f"NB={sid.shape[0]} G={sid.shape[1]} CAP={sid.shape[2]} CC={cc} "
+                    f"e={e} a={a}; {note}")
+        else:
+            dindex, v_sid, v_pos, v_lane, both, lens, e = args
+            used = kw["used"]
+            res = compare_and_time(
+                "banded_myers", f"the {suffix} of {key}",
+                lambda: verify_candidates(dindex, v_sid, v_pos, v_lane, both, lens, e, used=used),
+                lambda: verify_candidates_plain(dindex, v_sid, v_pos, v_lane, both, lens, e,
+                                                used=used), 2, 3)
+            bnd, note = myers_bound(v_sid, v_pos, v_lane, both, lens, e, used)
+            what = f"V={v_sid.shape[0]} Lmax={both.shape[1]} e={e}; {note}"
+        row = by_name[key]
+        row["max_abs_err"] = max(row["max_abs_err"], res["max_abs_err"])
+        row.update({f"ms_{suffix}": res["ms"], f"ms_{suffix}_cold": res["ms_cold"],
+                    f"ms_{suffix}_single": res["ms_single"],
+                    f"ms_{suffix}_profiler": res["ms_profiler"],
+                    f"plain_ms_{suffix}": res["plain_ms"],
+                    f"bound_ms_{suffix}": bnd["bound_ms"], f"bound_by_{suffix}": bnd["bound_by"]})
+        _log_times(f"[replay] {key}", f"on the {suffix.replace('_', ' ')} ({what})", res, bnd)
 
 
-def phase_main(ref, index, paths, dev) -> tuple[dict, dict]:
+class Probe:
+    """What a run of the engine did, read from outside it: how long the
+    emit threads were busy, how long each submit took on its thread.
+    `capture`, when set, maps a key to a test of a kernel wrapper call's
+    arguments: the first call that passes is kept (tensors cloned), for
+    the replay phase. (How often each kernel launched, and at which shape,
+    is the wrappers' own count in fem_tpu_torch.kernels.)"""
+
+    def __init__(self, engine):
+        from fem_tpu_torch.ops import candidates as candidates_mod
+        from fem_tpu_torch.pipeline import engine as engine_mod
+
+        self._lock = threading.Lock()
+        self.capture: dict = {}
+        self.captured: dict = {}
+        self.reset()
+        self._undo = []
+        self._wrap(candidates_mod, "filter_tail")
+        self._wrap(engine_mod, "verify_candidates")
+        self._time(engine, "_emit_native", lambda a, k, dt: self._emitted(dt))
+        self._time(engine, "submit_batch", self._submitted)
+
+    def reset(self) -> None:
+        self.emit_s = 0.0
+        self.emit_calls = 0
+        self.submit_s = collections.defaultdict(list)
+
+    def _emitted(self, dt) -> None:
+        with self._lock:
+            self.emit_s += dt
+            self.emit_calls += 1
+
+    def _submitted(self, args, kwargs, dt) -> None:
+        tier = kwargs.get("tier", args[1] if len(args) > 1 else 0)
+        with self._lock:
+            self.submit_s[tier].append(dt)
+
+    def _wrap(self, owner, attr) -> None:
+        real = getattr(owner, attr)
+        keep = lambda x: x.clone() if torch.is_tensor(x) else x
+
+        def wrapped(*args, **kwargs):
+            for key, test in self.capture.items():
+                if key not in self.captured and test(attr, args):
+                    self.captured[key] = ([keep(x) for x in args],
+                                          {k: keep(v) for k, v in kwargs.items()})
+            return real(*args, **kwargs)
+
+        setattr(owner, attr, wrapped)
+        self._undo.append(lambda: setattr(owner, attr, real))
+
+    def _time(self, owner, attr, note) -> None:
+        real = getattr(owner, attr)
+
+        def wrapped(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return real(*args, **kwargs)
+            finally:
+                note(args, kwargs, time.perf_counter() - t0)
+
+        setattr(owner, attr, wrapped)
+        self._undo.append(lambda: delattr(owner, attr))
+
+    def close(self) -> None:
+        for undo in self._undo:
+            undo()
+
+
+def run_engine(engine, probe: Probe, batches, mode: str) -> dict:
+    """Map `batches` once: "stream" through the pipelined map_stream,
+    "one_at_a_time" through map_batch in a loop. Returns the records'
+    digest, the counters, times, what the engine's counters moved by, and
+    the kernels' launch counts, which are set to 0 just before the run and
+    read just after it."""
     from fem_tpu_torch import kernels
-    from fem_tpu_torch.config import FemArgs
-    from fem_tpu_torch.io import fastx
-    from fem_tpu_torch.native.build import build_baseline
-    from fem_tpu_torch.ops import candidates as candidates_mod
-    from fem_tpu_torch.pipeline import engine as engine_mod
-    from fem_tpu_torch.pipeline.engine import EngineConfig, MappingEngine, StageTimer
     from fem_tpu_torch.stats import MappingStats
 
-    args = FemArgs(kmer_size=KMER, step_size=STEP, error_threshold=E,
-                   num_additional_qgrams=A)
-    config = EngineConfig(batch_size=BATCH, cap_occ=80, cap_cand=16,
-                          verify_per_read=2, accept_per_read=0.85)
-    engine = MappingEngine(args, ref, index, config)  # the default device: the card
-    check(engine.device.type == "cuda", "MappingEngine did not default to the card")
-    batches = list(fastx.stream_fastq_batches(paths["fq"], batch_size=BATCH))
-    log(f"[main] device index {engine.dindex.nbytes() / 2**30:.3f} GiB on {dev}")
-
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
+    before = (engine.retried_reads, engine.tier_dispatches, engine.fallback_reads)
+    probe.reset()
     kernels.reset_launches()
-    recs, total = [], MappingStats()
+    torch.cuda.synchronize()
+    recs, total, first_s = [], MappingStats(), None
     t0 = time.perf_counter()
-    for r, st in engine.map_stream(batches[:1]):  # first batch: warm-up
+    items = (engine.map_stream(batches) if mode == "stream"
+             else (engine.map_batch(b) for b in batches))
+    for r, st in items:
+        first_s = time.perf_counter() - t0 if first_s is None else first_s
         recs.extend(r)
         total += st
-    warm_s = time.perf_counter() - t0
-    engine.stage_timer = StageTimer(torch.device(dev))
-    steady = MappingStats()
-    t0 = time.perf_counter()
-    first_steady = None  # the first steady batch's records
-    for r, st in engine.map_stream(batches[1:]):
-        first_steady = r if first_steady is None else first_steady
-        recs.extend(r)
-        steady += st
-    steady_s = time.perf_counter() - t0
-    launches = dict(kernels.launches)
-    peak = torch.cuda.max_memory_allocated(dev)
-    total += steady
-    log(f"[main] kernel launches on the main path: {launches}")
-    check(all(n > 0 for n in launches.values()), "a kernel of the main path never launched")
-    rps = steady.num_reads / steady_s
-    stage_ms = {k: round(v, 3) for k, v in engine.stage_timer.ms.items()}
-    log(f"[main] steady {rps:,.1f} reads/s ({steady.num_reads} reads in {steady_s:.3f} s, "
-        f"first batch {warm_s:.3f} s) | host-fallback reads {engine.fallback_reads} | "
-        f"peak device memory {peak / 2**30:.3f} GiB")
-    log(f"[main] device stage ms over {len(batches) - 1} steady batches: {stage_ms}")
+    seconds = time.perf_counter() - t0
+    launches, shapes = dict(kernels.launches), kernels.launches_by_shape()
+    after = (engine.retried_reads, engine.tier_dispatches, engine.fallback_reads)
+    retried, dispatches, fallback = (b - a for a, b in zip(before, after))
+    return {"mode": mode, "digest": digest_lines(recs), "stats": total, "seconds": seconds,
+            "first_s": first_s, "reads_per_s": total.num_reads / seconds,
+            "emit_s": probe.emit_s, "emit_calls": probe.emit_calls,
+            "retried": retried, "dispatches": dispatches, "fallback": fallback,
+            "launches": launches, "tail_shapes": shapes["filter_tail"],
+            "myers_shapes": shapes["banded_myers"],
+            "submit_s": {t: list(v) for t, v in probe.submit_s.items()}}
 
-    # The kernels' inputs in one steady batch, for phase 6: that batch is
-    # mapped once more, outside the timed and counted run above.
-    captured: dict = {}
-    undo = [_capture_first_call(candidates_mod, "filter_tail", captured, "filter_tail"),
-            _capture_first_call(engine_mod, "verify_candidates", captured, "banded_myers")]
-    again = [r for rs, _ in engine.map_stream(batches[1:2]) for r in rs]
-    for restore in undo:
-        restore()
-    check(digest_lines(again) == digest_lines(first_steady),
-          "the batch mapped again for capture gave other records")
 
-    # The oracle: fem_baseline (byte-identical to the reference binary) on
-    # the same reads; record multiset and counters must be equal.
+def _log_run(tag: str, what: str, run: dict) -> None:
+    n = run["stats"].num_reads
+    log(f"[main] {tag} {what}: {run['reads_per_s']:,.1f} reads/s ({n} reads in "
+        f"{run['seconds']:.3f} s, first item after {run['first_s']:.3f} s) | submit_batch "
+        f"{sum(map(sum, run['submit_s'].values())):.3f} s over "
+        f"{sum(map(len, run['submit_s'].values()))} calls, emit threads busy "
+        f"{run['emit_s']:.3f} s over {run['emit_calls']} calls | retried "
+        f"{run['retried']} ({run['retried'] / n:.2%}), tier dispatches {run['dispatches']}, "
+        f"host-mapped {run['fallback']} ({run['fallback'] / n:.2%})")
+
+
+def baseline_check(tag: str, paths: dict, run: dict) -> None:
+    """The oracle: fem_baseline (byte-identical to the reference binary) on
+    the same reads; record multiset and counters must be equal."""
+    from fem_tpu_torch.native.build import build_baseline
+
     t0 = time.perf_counter()
     sam = os.path.join(os.path.dirname(paths["fq"]), "baseline.sam")
     p = subprocess.run(
@@ -557,31 +820,207 @@ def phase_main(ref, index, paths, dev) -> tuple[dict, dict]:
     with open(sam, "rb") as f:
         want_dig, want_cnt = digest_lines([f.read()])
     want_counters = counters_from_stderr(p.stderr)
-    got_dig, got_cnt = digest_lines(recs)
+    got_dig, got_cnt = run["digest"]
+    total = run["stats"]
     got_counters = [total.num_reads, total.num_mapped_reads,
                     total.num_candidates_without_additional_qgram_filter,
                     total.num_candidates, total.num_mappings]
-    log(f"[main] fem_baseline check ({time.perf_counter() - t0:.1f} s): "
+    log(f"[main] {tag} fem_baseline check ({time.perf_counter() - t0:.1f} s): "
         f"records {got_cnt} vs {want_cnt}, digest equal {got_dig == want_dig}, "
         f"counters {got_counters} vs {want_counters}")
     check(got_cnt == want_cnt and got_dig == want_dig,
-          "SAM record multiset differs from fem_baseline")
-    check(got_counters == want_counters, "counters differ from fem_baseline")
-    check(total.num_reads == NUM_READS, "not every read was mapped")
-    return launches, captured
+          f"{tag}: SAM record multiset differs from fem_baseline")
+    check(got_counters == want_counters, f"{tag}: counters differ from fem_baseline")
+    check(total.num_reads == NUM_READS, f"{tag}: not every read was mapped")
+
+
+def phase_main(tag: str, ref, index, paths, config, dev, turns: tuple,
+               capture: dict, no_ladder_pass: bool = False) -> tuple[dict, dict]:
+    """One operating point through the pipelined stream with the default
+    ladder, then `turns` more runs of the same batches ("stream" or
+    "one_at_a_time") for the steady rates, one profiled, and one in which
+    the kernel inputs named by `capture` (row name -> test of a wrapper
+    call) are kept; with `no_ladder_pass`, last the reads once more through
+    an engine without a ladder. Returns the counted run and the captured
+    inputs."""
+    from fem_tpu_torch import kernels
+    from fem_tpu_torch.config import FemArgs
+    from fem_tpu_torch.io import fastx
+    from fem_tpu_torch.pipeline.engine import MappingEngine, StageTimer
+
+    args = FemArgs(kmer_size=KMER, step_size=STEP, error_threshold=E,
+                   num_additional_qgrams=A)
+    check(config.tiers is None, "the main path runs the default ladder")
+    engine = MappingEngine(args, ref, index, config)  # the default device: the card
+    check(engine.device.type == "cuda", "MappingEngine did not default to the card")
+    check([(t.batch_size, t.cap_occ, t.cap_cand) for t in engine.tiers] == [TIER1, TIER2]
+          and engine._caps(engine.tiers[1])[0] == TIER2_VERIFY_SLOTS,
+          f"{tag}: the default ladder is not the one the kernel rows were timed at")
+    batches = list(fastx.stream_fastq_batches(paths["fq"], batch_size=BATCH))
+    t1, t2 = engine.tiers
+    log(f"[main] {tag}: device index {engine.dindex.nbytes() / 2**30:.3f} GiB on {dev}; "
+        f"pipeline depth {config.pipeline_depth}; tier 1 {t1.batch_size} reads at "
+        f"{t1.cap_occ} + {t1.cap_cand}, tier 2 {t2.batch_size} reads at "
+        f"{t2.cap_occ} + {t2.cap_cand}")
+    probe = Probe(engine)
+
+    # The counted run: counts to 0 just before, read just after.
+    engine.stage_timer = StageTimer(torch.device(dev))
+    torch.cuda.reset_peak_memory_stats(dev)
+    run = run_engine(engine, probe, batches, "stream")
+    timer, engine.stage_timer = engine.stage_timer, None
+    peak = torch.cuda.max_memory_allocated(dev)
+    _log_run(tag, "pipelined stream, first run (cold start in it)", run)
+    log(f"[main] {tag}: kernel launches {run['launches']}; filter_tail launches by "
+        f"(cap_occ, cap_cand) {run['tail_shapes']}; banded_myers launches by (slots, "
+        f"lanes) {run['myers_shapes']}; peak device memory {peak / 2**30:.3f} GiB")
+    for tier, ms in timer.ms.items():
+        log(f"[main] {tag}: device stage ms over {timer.batches[tier]} "
+            f"{'tier-0' if tier == 0 else 'retry-tier'} batches: "
+            f"{ {k: round(v, 3) for k, v in ms.items()} }")
+    for tier, secs in sorted(run["submit_s"].items()):
+        log(f"[main] {tag}: submit_batch at tier {tier} on its thread: first "
+            f"{secs[0] * 1e3:.1f} ms, median {statistics.median(secs) * 1e3:.1f} ms "
+            f"over {len(secs)}")
+    check(all(n > 0 for n in run["launches"].values()),
+          f"{tag}: a kernel of the main path never launched")
+    check(run["launches"]["filter_tail"] == run["launches"]["banded_myers"]
+          == len(batches) + run["dispatches"],
+          f"{tag}: not one launch of each kernel a dispatch")
+    baseline_check(tag, paths, run)
+
+    # The same batches again, in turns. Every run must give the counted
+    # run's records.
+    for mode in turns:
+        again = run_engine(engine, probe, batches, mode)
+        check(again["digest"] == run["digest"], f"{tag}: a {mode} run gave other records")
+        _log_run(tag, "steady, " + ("pipelined stream" if mode == "stream"
+                                    else "one batch at a time"), again)
+        run.setdefault("steady_" + mode, []).append(again["reads_per_s"])
+    _profiled_run(tag, engine, probe, batches, run["digest"])
+
+    # The kernels' inputs, for phase 6: the stream is mapped once more,
+    # outside the timed and counted runs above.
+    probe.capture = capture
+    again = run_engine(engine, probe, batches, "stream")
+    check(again["digest"] == run["digest"],
+          f"{tag}: the stream mapped again for capture gave other records")
+    check(set(probe.captured) == set(capture),
+          f"{tag}: captured inputs of {sorted(probe.captured)} only")
+    probe.close()
+    if no_ladder_pass:
+        del engine
+        _no_ladder_run(tag, args, ref, index, paths, config, run)
+    return run, probe.captured
+
+
+def _no_ladder_run(tag: str, args, ref, index, paths, config, counted: dict) -> None:
+    """The same reads through an engine with tiers=(), so that every
+    capacity overflow goes to the host mapper (_map_read_fallback) and its
+    records are spliced in under the pipelined stream; the batches come
+    from the FASTQ file through a ThreadedBatchSource, parsed on its thread
+    while the stream maps. Records must be the counted run's."""
+    import dataclasses
+
+    from fem_tpu_torch.io import fastx
+    from fem_tpu_torch.pipeline.engine import MappingEngine
+    from fem_tpu_torch.pipeline.prefetch import ThreadedBatchSource
+
+    engine = MappingEngine(args, ref, index, dataclasses.replace(config, tiers=()))
+    check(engine.tiers == (), "tiers=() left a ladder")
+    probe = Probe(engine)
+    source = ThreadedBatchSource(fastx.stream_fastq_batches(paths["fq"], batch_size=BATCH))
+    run = run_engine(engine, probe, source, "stream")
+    probe.close()
+    _log_run(tag, "pipelined stream without a ladder, batches parsed on a "
+             "ThreadedBatchSource's thread (parse time in the wall)", run)
+    check(run["digest"] == counted["digest"] and run["stats"] == counted["stats"],
+          f"{tag}: the run without a ladder gave other records or counters")
+    check(run["fallback"] > 0 and run["retried"] == 0 and run["dispatches"] == 0,
+          f"{tag}: without a ladder the overflow reads did not reach the host mapper")
+    check(run["launches"]["filter_tail"] == run["launches"]["banded_myers"]
+          == NUM_READS // BATCH, f"{tag}: the run without a ladder launched otherwise")
+
+
+def _profiled_run(tag: str, engine, probe, batches, digest) -> None:
+    """One more pipelined run under torch.profiler: the device's busy and
+    idle share of the wall, and the kernels that take most of its time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        again = run_engine(engine, probe, batches, "stream")
+        torch.cuda.synchronize()
+    check(again["digest"] == digest, f"{tag}: the profiled run gave other records")
+    events = [(ev.key, getattr(ev, "device_time_total", None)
+               or getattr(ev, "cuda_time_total", 0), ev.count) for ev in prof.key_averages()]
+    busy_ms = sum(t for _, t, _ in events) / 1e3
+    wall_ms = again["seconds"] * 1e3
+    top = sorted(events, key=lambda x: -x[1])[:6]
+    log(f"[main] {tag} profiled pipelined run: wall {wall_ms:.1f} ms "
+        f"({again['reads_per_s']:,.1f} reads/s under the profiler), device busy "
+        f"{busy_ms:.1f} ms over {sum(c for _, _, c in events)} kernels and copies, idle "
+        f"{1 - busy_ms / wall_ms:.1%} of the wall; largest: "
+        + "; ".join(f"{k[:48]} {t / 1e3:.2f} ms x{c}" for k, t, c in top))
 
 
 def main() -> int:
+    from fem_tpu_torch.pipeline.engine import EngineConfig
+
     smi = phase_device()
     dev = "cuda:0"
     phase_build()
     with tempfile.TemporaryDirectory() as workdir:
-        ref, index, paths = phase_setup(workdir)
+        ref, index, paths = phase_setup(workdir, "benign", benign_genome(), read_seed=9)
         rows = phase_kernels(ref, index, dev)
-        launches, captured = phase_main(ref, index, paths, dev)
-        phase_replay(rows, captured)
+        is_tail = lambda attr, a, shape: attr == "filter_tail" and (a[0].shape[2], a[2]) == shape
+        is_verify = lambda attr, a, row: (  # a row's own test of (slots, lanes)
+            attr == "verify_candidates"
+            and ROW_LAUNCHES[row][1]((a[1].shape[0], a[4].shape[0])))
+        benign, captured = phase_main(
+            "benign", ref, index, paths,
+            EngineConfig(batch_size=BATCH, cap_occ=80, cap_cand=16,
+                         verify_per_read=2, accept_per_read=0.85),
+            dev, turns=("one_at_a_time", "stream", "stream", "one_at_a_time"),
+            capture={"filter_tail": lambda attr, a: is_tail(attr, a, (80, 16)),
+                     "filter_tail_tier1": lambda attr, a: is_tail(attr, a, TIER1[1:]),
+                     "banded_myers": lambda attr, a: is_verify(attr, a, "banded_myers")},
+            no_ladder_pass=True)
+        phase_replay(rows, captured, "main_inputs")
+        del ref, index, captured
+        torch.cuda.empty_cache()
+
+        ref, index, paths = phase_setup(workdir, "adversarial", satellite_genome(),
+                                        read_seed=14)
+        adversarial, captured = phase_main(
+            "adversarial", ref, index, paths,
+            EngineConfig(batch_size=BATCH, cap_occ=80, cap_cand=64,
+                         verify_per_read=8, accept_per_read=8),
+            dev, turns=("stream", "one_at_a_time"),
+            capture={"filter_tail_adv": lambda attr, a: is_tail(attr, a, ADV_TAIL),
+                     "banded_myers_adv": lambda attr, a: is_verify(attr, a, "banded_myers_adv"),
+                     "filter_tail_tier1": lambda attr, a: is_tail(attr, a, TIER1[1:]),
+                     "filter_tail_tier2": lambda attr, a: is_tail(attr, a, TIER2[1:]),
+                     "banded_myers_tier2":
+                         lambda attr, a: is_verify(attr, a, "banded_myers_tier2")})
+        phase_replay(rows, captured, "adversarial_inputs")
+    check(adversarial["retried"] > 0, "adversarial: no read was retried")
+    check(any(cap + cc > 512 for cap, cc in adversarial["tail_shapes"]),
+          "adversarial: filter_tail never launched above cap_cand + cap_occ = 512")
+    check(TIER2[1:] in adversarial["tail_shapes"], "adversarial: tier 2 was never reached")
+
+    # Launches of each row: what the wrapper counted at the row's shape in
+    # each counted run; `launches` is the count on the row's own main path.
+    # (The adversarial point's tier 0 has 262,144 verify slots too: tier 2's
+    # launches are those over at most 2 * 64 lanes.)
+    runs = {"benign": benign, "adversarial": adversarial}
+    check({r["name"] for r in rows} == set(ROW_LAUNCHES), "a row without a launch count")
     for row in rows:
-        row["launches"] = launches[row["name"]]
+        kernel, at_shape, path = ROW_LAUNCHES[row["name"]]
+        for point, run in runs.items():
+            by_shape = run["tail_shapes" if kernel == "filter_tail" else "myers_shapes"]
+            row[f"launches_{point}"] = sum(n for s, n in by_shape.items() if at_shape(s))
+        row["launches"] = row[f"launches_{path}"]
+        check(row["launches"] > 0, f"{row['name']} was launched no time on the main path")
         row["bound_us"] = row["bound_ms"] * 1e3
     log(f"[done] card: {smi}")
     print(json.dumps({"kernels": rows}))

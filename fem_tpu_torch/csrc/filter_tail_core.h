@@ -32,7 +32,13 @@ namespace ft {
 constexpr int64_t kSentinelSid = int64_t(1) << 30;
 constexpr int64_t kBig = int64_t(1) << 30;
 constexpr int64_t kSentKey = (kSentinelSid << 32) | kBig;
-constexpr int kMaxSlab = 512;  // cap_cand + cap_occ rounded up to a power of two
+// Widest slab (cap_cand + cap_occ rounded up to a power of two) whose
+// per-lane scratch fits one block's shared memory; wider slabs take their
+// scratch from a global-memory workspace.
+constexpr int kMaxSmemSlab = 8192;
+
+// int64 words of scratch a lane needs: buf[slab], merged[slab], carry[cc].
+FT_HD int64_t scratch_words(int slab, int cc) { return 2 * int64_t(slab) + cc; }
 
 FT_HD int64_t pack(int32_t sid, int32_t diag) {
   return (int64_t(sid) << 32) | int64_t(uint32_t(diag));
@@ -186,9 +192,11 @@ FT_HD int compact_row(const int32_t* sid, const int32_t* diag, int cap, int t,
 
 // Lane b of the (nb, G, cap) slabs -> its cc candidates and overflow flag.
 // Scratch per lane: buf[kSlab], merged[kSlab], carry[cc], with kSlab a power
-// of two >= cc + cap. The groups fold in order inside the lane.
-template <int kSlab>
-FT_HD void filter_tail_lane(const int32_t* sid, const int32_t* diag, int b,
+// of two >= cc + cap, in shared or in global memory: the steps only see
+// pointers. The groups fold in order inside the lane. kSlab is a compile-time
+// constant where the caller has one (the function is inlined).
+FT_HD void filter_tail_lane(const int kSlab, const int32_t* sid,
+                            const int32_t* diag, int b,
                             int G, int cap, int cc, int e, int a,
                             int64_t* buf, int64_t* merged, int64_t* carry,
                             int t, int32_t* out_sid, int32_t* out_pos,

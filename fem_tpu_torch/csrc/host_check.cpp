@@ -11,34 +11,31 @@
 
 namespace {
 
-template <int kSlab>
-void tail_lanes(const int32_t* sid, const int32_t* diag, int nb, int G, int cap,
-                int cc, int e, int a, int32_t* out_sid, int32_t* out_pos,
-                uint8_t* overflow) {
-  std::vector<int64_t> scratch(2 * kSlab + cc);
+// Lanes one after the other, each as one emulated warp, on one scratch row.
+void tail_lanes(int slab, const int32_t* sid, const int32_t* diag, int nb, int G,
+                int cap, int cc, int e, int a, int32_t* out_sid,
+                int32_t* out_pos, uint8_t* overflow) {
+  std::vector<int64_t> scratch(2 * size_t(slab) + cc);
   int64_t* s = scratch.data();
   for (int b = 0; b < nb; ++b)
     warp_emul::run_warp([&](int t) {
-      ft::filter_tail_lane<kSlab>(sid, diag, b, G, cap, cc, e, a, s, s + kSlab,
-                                  s + 2 * kSlab, t, out_sid, out_pos, overflow);
+      ft::filter_tail_lane(slab, sid, diag, b, G, cap, cc, e, a, s, s + slab,
+                           s + 2 * size_t(slab), t, out_sid, out_pos, overflow);
     });
 }
 
 }  // namespace
 
-// Returns 0, or 1 when cap_cand + cap_occ exceeds the kernel's bound.
+// The slab width is chosen as fem_filter_tail chooses it on the card: the
+// power of two >= cap_cand + cap_occ, at least 128. Returns 0.
 extern "C" int fem_host_filter_tail(const int32_t* sid, const int32_t* diag,
                                     int nb, int G, int cap, int cc, int e,
                                     int a, int32_t* out_sid, int32_t* out_pos,
                                     uint8_t* overflow) {
-  auto go = [&](auto fn) {
-    fn(sid, diag, nb, G, cap, cc, e, a, out_sid, out_pos, overflow);
-    return 0;
-  };
-  if (cc + cap <= 128) return go(tail_lanes<128>);
-  if (cc + cap <= 256) return go(tail_lanes<256>);
-  if (cc + cap <= ft::kMaxSlab) return go(tail_lanes<ft::kMaxSlab>);
-  return 1;
+  int slab = 128;
+  while (slab < cc + cap) slab <<= 1;
+  tail_lanes(slab, sid, diag, nb, G, cap, cc, e, a, out_sid, out_pos, overflow);
+  return 0;
 }
 
 extern "C" void fem_host_banded_myers(const uint8_t* ref, int64_t ref_len,

@@ -10,13 +10,17 @@ source is newer. A compile error raises with nvcc's stderr; nothing is
 taken from outside the checkout. `build_log` keeps what ptxas said of
 each kernel's registers, shared memory and spills (-Xptxas -v).
 
-`launches` counts kernel launches per kernel; each wrapper adds one where
-it launches its kernel, so a run can show that its main path went
-through the kernels.
+`launches` counts kernel launches per kernel and `launch_shapes` the same
+launches by the shape they were made at; each wrapper calls `count_launch`
+where it launches its kernel, and nowhere else, so a run can show that its
+main path went through the kernels and at which widths. The counts are
+taken under a lock: the engine's drain threads launch retry batches beside
+the submitting thread.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import glob
 import os
@@ -35,8 +39,12 @@ NVCC_FLAGS = [
 build_log = ""  # ptxas -v output of the last build in this process
 
 launches = {"banded_myers": 0, "filter_tail": 0}
+# The same launches by shape: filter_tail's key is (cap_occ, cap_cand),
+# banded_myers' is (verify slots, read-strand lanes).
+launch_shapes = {k: collections.Counter() for k in launches}
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _lib = None
 
 _P = ctypes.c_void_p
@@ -45,8 +53,22 @@ _I64 = ctypes.c_int64
 
 
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    with _count_lock:
+        for k in launches:
+            launches[k] = 0
+            launch_shapes[k].clear()
+
+
+def count_launch(name: str, shape: tuple) -> None:
+    with _count_lock:
+        launches[name] += 1
+        launch_shapes[name][shape] += 1
+
+
+def launches_by_shape() -> dict:
+    """A copy of `launch_shapes`, taken under the counters' lock."""
+    with _count_lock:
+        return {k: dict(v) for k, v in launch_shapes.items()}
 
 
 def nvcc_path() -> str:
@@ -93,7 +115,8 @@ def library() -> ctypes.CDLL:
             lib.fem_filter_tail.restype = _I
             lib.fem_filter_tail.argtypes = [
                 _P, _P, _I, _I, _I, _I, _I, _I,  # sid, diag, nb, G, cap, cc, e, a
-                _P, _P, _P, _P,  # out_sid, out_pos, overflow, stream
+                _P, _P, _P,  # out_sid, out_pos, overflow
+                _P, _I, _P,  # workspace, its rows, stream
             ]
             lib.fem_cuda_error_string.restype = ctypes.c_char_p
             lib.fem_cuda_error_string.argtypes = [_I]

@@ -8,8 +8,9 @@ candidate list through the greedy +-e dedup, which can evict earlier
 winners (src/filter.c:45-78,210-212). The first cap_cand kept candidates
 carry to the next group; overflow marks a lane that kept more.
 
-`filter_tail` runs the CUDA kernel (csrc/filter_tail.cu) on a CUDA tensor
-and the plain torch version beside it on a CPU tensor. Layout as
+`filter_tail` runs the CUDA kernel (csrc/filter_tail.cu) on a CUDA tensor,
+at any cap_cand + cap_occ (the retry tiers ask for thousands), and the
+plain torch version beside it on a CPU tensor. Layout as
 fem_tpu.ops.filter_tail_pallas: (NB, G, CAP) int32 in, invalid slots at
 (SENTINEL_SID, BIG); (NB, CC) int32 candidate lists out, ascending, with
 the sentinel in the tail slots, plus an (NB,) bool overflow.
@@ -22,7 +23,11 @@ import torch
 from fem_tpu_torch import kernels
 from fem_tpu_torch.ops.types import BIG, SENTINEL_SID
 
-MAX_SLAB = 512  # the kernel's bound on cap_cand + cap_occ
+# Widest cap_cand + cap_occ whose per-lane scratch the kernel keeps in
+# shared memory (csrc/filter_tail_core.h:kMaxSmemSlab); above it the wrapper
+# hands the kernel a global-memory workspace of WORKSPACE_ROWS lanes' scratch.
+SMEM_SLAB = 8192
+WORKSPACE_ROWS = 528  # lanes in flight there: four one-warp blocks an SM
 _M32 = 0xFFFFFFFF
 _SENT_KEY = (SENTINEL_SID << 32) | BIG
 
@@ -70,24 +75,25 @@ def filter_tail_plain(
 
 def _filter_tail_cuda(sid, diag, cap_cand: int, e: int, a: int):
     NB, G, CAP = sid.shape
-    if cap_cand + CAP > MAX_SLAB:
-        raise ValueError(
-            f"filter_tail kernel takes cap_cand + cap_occ <= {MAX_SLAB}, "
-            f"got {cap_cand} + {CAP}"
-        )
     out_sid = torch.empty((NB, cap_cand), dtype=torch.int32, device=sid.device)
     out_pos = torch.empty_like(out_sid)
     overflow = torch.empty(NB, dtype=torch.bool, device=sid.device)
     if NB == 0:
         return out_sid, out_pos, overflow
-    lib = kernels.library()
-    rc = lib.fem_filter_tail(
+    ws, ws_rows = None, 0
+    if cap_cand + CAP > SMEM_SLAB:
+        slab = 1 << (cap_cand + CAP - 1).bit_length()
+        ws_rows = min(NB, WORKSPACE_ROWS)
+        ws = torch.empty(ws_rows * (2 * slab + cap_cand), dtype=torch.int64,
+                         device=sid.device)
+    rc = kernels.library().fem_filter_tail(
         sid.data_ptr(), diag.data_ptr(), NB, G, CAP, cap_cand, e, a,
         out_sid.data_ptr(), out_pos.data_ptr(), overflow.data_ptr(),
+        None if ws is None else ws.data_ptr(), ws_rows,
         torch.cuda.current_stream(sid.device).cuda_stream,
     )
     kernels.check_launch(rc, "filter_tail")
-    kernels.launches["filter_tail"] += 1
+    kernels.count_launch("filter_tail", (CAP, cap_cand))
     return out_sid, out_pos, overflow
 
 

@@ -121,7 +121,7 @@ def _verify_cuda(index: DeviceIndex, v_sid, v_pos, v_lane, both, lens2, e: int, 
             torch.cuda.current_stream(v_sid.device).cuda_stream,
         )
         kernels.check_launch(rc, "banded_myers")
-        kernels.launches["banded_myers"] += 1
+        kernels.count_launch("banded_myers", (V, NB))
     return VerifyResult(ed, end, ed <= e)
 
 

@@ -1,26 +1,41 @@
-"""The batched mapping engine on one CUDA device (fem_tpu/pipeline/engine.py,
-tier 0).
+"""The batched mapping engine on one CUDA device (fem_tpu/pipeline/engine.py
+on one chip).
 
 Reads are batched; both strands go through one device step (hash ->
 q-gram DP -> candidate filter -> banded Myers), and the small set of
 accepted hits comes back to the host in one copy for traceback and SAM
-emission by the native emitter (native/). Reads that exceed a device
-capacity (occurrence slab, candidate list, verify or accept slots) or hit
-an inherent limit (incomplete DP) are mapped by the exact host mapper, so
-the ALL-mappings guarantee survives fixed capacities. There is no device
-retry ladder yet: capacity overflow goes straight to the host mapper.
+emission by the native emitter (native/). The device step has fixed
+capacities (occurrence slab, candidate list, verify and accept slots). A
+read that exceeds one is mapped again on the next rung of the
+capacity-retry ladder (`TierConfig`: a smaller batch with bigger
+capacities), and past the last rung by the exact host mapper; a read that
+hits an inherent limit (incomplete DP) goes to the host mapper at once.
+So the ALL-mappings guarantee survives fixed capacities.
+
+`map_stream` keeps `depth` batches in flight: the device step of every
+batch runs on the engine's one CUDA stream and ends in a non-blocking copy
+of the packed result into pinned host memory, followed by a recorded
+event; drain threads wait on that event only, then emit. In the unordered
+stream capacity-overflow reads gather in a retry pool and go out again as
+pipelined tier-1 batches; `watermark_reads` is the longest stream prefix
+whose records the consumer has had, retries included.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import os
 import threading
-from typing import Iterable, Iterator, List, Tuple
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, Iterable, Iterator, List, NamedTuple, Tuple
 
 import numpy as np
 import torch
 
 from fem_tpu_torch.config import FemArgs
+from fem_tpu_torch.core.encoding import encode
 from fem_tpu_torch.index.storage import FemIndex
 from fem_tpu_torch.io.fastx import ReadBatch, Reference
 from fem_tpu_torch.native import NativeCpuMapper, NativeEmitter
@@ -34,6 +49,24 @@ from fem_tpu_torch.stats import MappingStats
 STAGES = ("hash", "candidates", "verify_slab", "verify", "accept")
 
 
+@dataclasses.dataclass(frozen=True)
+class TierConfig:
+    """One rung of the capacity-retry ladder: the shapes of one device step.
+
+    Reads whose occurrence, candidate, verify or accept demand exceeds a
+    tier's capacities are mapped again at the next tier (smaller batch,
+    bigger capacities); past the last tier the exact host mapper takes
+    over. That is how fixed capacities keep the reference's unbounded
+    merge (src/filter.c:80-131) on heavy-tailed occurrence distributions
+    (satellite repeats: seed frequencies 10^3-10^5)."""
+
+    batch_size: int
+    cap_occ: int
+    cap_cand: int
+    verify_per_read: float  # verify slots = int(2 * batch_size * value)
+    accept_per_read: float
+
+
 @dataclasses.dataclass
 class EngineConfig:
     batch_size: int = 10000  # reads per device batch (src/FEM_map.c:151)
@@ -41,6 +74,25 @@ class EngineConfig:
     cap_cand: int = 256  # candidates carried per (read, strand)
     verify_per_read: float = 16  # verify slots per read-strand lane (avg)
     accept_per_read: float = 4  # accepted-hit slots per read (avg)
+    pipeline_depth: int = 4  # batches in flight (device + drain threads)
+    tiers: tuple[TierConfig, ...] | None = None  # retry ladder above tier 0;
+    # None = derived from the caps above (MappingEngine._default_tiers).
+    # () turns device retries off: overflow reads go to the host mapper.
+
+
+def engine_config_from_jax(fields: dict) -> EngineConfig:
+    """The port's EngineConfig from a fem_tpu EngineConfig given as plain
+    values (`dataclasses.asdict`), its TierConfigs included: the fields the
+    port does not have (cap_vote, aggregate_fetch, use_pallas,
+    serialize_dispatch, mesh, index_mesh) are dropped."""
+    def keep(cls, d):
+        names = {f.name for f in dataclasses.fields(cls)}
+        return {k: v for k, v in d.items() if k in names}
+
+    kept = keep(EngineConfig, fields)
+    if kept.get("tiers") is not None:
+        kept["tiers"] = tuple(TierConfig(**keep(TierConfig, t)) for t in kept["tiers"])
+    return EngineConfig(**kept)
 
 
 def _scatter(size: int, slot: torch.Tensor, ok: torch.Tensor, values: torch.Tensor):
@@ -146,49 +198,73 @@ _HOST_FIELDS = ("a_lane", "a_sid", "a_pos", "a_ed", "a_end", "fb", "inherent")
 _HOST_SCALARS = ("n_accepted", "sum_nc", "sum_dp")
 
 
-def to_host(out: dict) -> dict:
-    """The fields the host needs, in one device-to-host copy."""
+def pack_result(out: dict) -> torch.Tensor:
+    """The fields the host needs as one int64 tensor, for one copy."""
     parts = [torch.stack([out[k] for k in _HOST_SCALARS]).long()]
     parts += [out[k].long() for k in _HOST_FIELDS]
-    flat = torch.cat(parts).cpu().numpy()
+    return torch.cat(parts)
+
+
+def unpack_result(flat: np.ndarray, acc_cap: int, num_reads: int) -> dict:
+    """`pack_result`'s layout on the host, as views of `flat`."""
     host = dict(zip(_HOST_SCALARS, (int(x) for x in flat[:3])))
     o = 3
     for k in _HOST_FIELDS:
-        n = out[k].shape[0]
+        n = num_reads if k in ("fb", "inherent") else acc_cap
         host[k] = flat[o : o + n]
         o += n
     host["fb"] = host["fb"].astype(bool)
     host["inherent"] = host["inherent"].astype(bool)
     # Hits past the accept slots were dropped; their reads carry fb.
-    host["n_accepted"] = min(host["n_accepted"], host["a_lane"].shape[0])
+    host["n_accepted"] = min(host["n_accepted"], acc_cap)
     return host
 
 
 class StageTimer:
-    """CUDA events at each map_core stage boundary; `ms` sums per stage."""
+    """CUDA-event times of map_core's stages, summed per stage in `ms`:
+    tier 0 under `ms[0]`, all retry tiers together under `ms[1]`. A batch's
+    events travel with it from `begin` to `collect`, so batches in flight
+    do not mix; retry batches submitted from drain threads share the
+    stream, so their kernels can fall between a tier-0 batch's events."""
 
     def __init__(self, device: torch.device):
         self.device = device
-        self.ms = {s: 0.0 for s in STAGES}
-        self._events: list = []
-
-    def start(self) -> None:
-        self._events = [("start", self._record())]
+        self.ms = {t: {s: 0.0 for s in STAGES} for t in (0, 1)}
+        self.batches = {0: 0, 1: 0}
+        self._lock = threading.Lock()
 
     def _record(self):
         ev = torch.cuda.Event(enable_timing=True)
         ev.record(torch.cuda.current_stream(self.device))
         return ev
 
-    def mark(self, stage: str) -> None:
-        self._events.append((stage, self._record()))
+    def begin(self) -> list:
+        """A new batch's event list, with its start recorded."""
+        return [("start", self._record())]
 
-    def collect(self) -> None:
-        """Add the timed stages of the last batch (synchronizes)."""
-        self._events[-1][1].synchronize()
-        for (_, a), (stage, b) in zip(self._events, self._events[1:]):
-            self.ms[stage] += a.elapsed_time(b)
-        self._events = []
+    def mark(self, events: list, stage: str) -> None:
+        events.append((stage, self._record()))
+
+    def collect(self, events: list, tier: int) -> None:
+        """Add one finished batch's stage times."""
+        events[-1][1].synchronize()
+        key = min(tier, 1)
+        with self._lock:
+            self.batches[key] += 1
+            for (_, a), (stage, b) in zip(events, events[1:]):
+                self.ms[key][stage] += a.elapsed_time(b)
+
+
+class Pending(NamedTuple):
+    """A dispatched batch: what `submit_batch` hands to a drain."""
+
+    batch: ReadBatch
+    flat: torch.Tensor  # pack_result's tensor on the host (pinned on a card)
+    ready: object  # torch.cuda.Event recorded after the copy, None on the CPU
+    tier: int
+    seq: int | None  # stream position of a tier-0 batch
+    origins: list | None  # a pooled retry batch: its reads' origin seqs
+    events: list | None  # StageTimer events of this batch
 
 
 class MappingEngine:
@@ -208,41 +284,162 @@ class MappingEngine:
         self.reference = reference
         self.config = config or EngineConfig()
         self.dindex = device_index_from_host(index, reference, self.device)
+        # One compute stream per engine: every device step and every result
+        # copy is enqueued on it, from whichever thread submits.
+        self._stream = None
+        if self.device.type == "cuda":
+            self._stream = torch.cuda.Stream(self.device)
+            self._stream.wait_stream(torch.cuda.current_stream(self.device))
         self._native = NativeEmitter(reference, args.error_threshold)
         self._cpu_mapper = NativeCpuMapper(args, reference, index)
         self._fallback_lock = threading.Lock()
-        self.fallback_reads = 0
+        self.fallback_reads = 0  # reads mapped by the host mapper
+        # Capacity-retry ladder (tier 0 = the EngineConfig caps themselves).
+        if self.config.tiers is None:
+            self.tiers = self._default_tiers()
+        else:
+            self.tiers = tuple(self.config.tiers)
+        self.retried_reads = 0  # reads mapped again at tier >= 1
+        self.tier_dispatches = 0  # device steps at tier >= 1: the retry tax
+        # a heavy-tailed genome pays (the reference's unbounded merge pays
+        # none, src/filter.c:80-131)
+        # Stream-mode retry pool and completion watermark (for checkpoints).
+        self._pool_lock = threading.Lock()
+        self._retry_pool: list | None = None  # set inside map_stream
+        self._seq = 0
+        self._batch_state: Dict[int, list] = {}  # seq -> [reads, outstanding, drained]
+        self._watermark_seq = 0
+        self._watermark_reads = 0
+        self.consumed_reads = 0
         self.stage_timer: StageTimer | None = None
 
-    def _caps(self) -> Tuple[int, int]:
+    def _default_tiers(self) -> tuple:
+        """The retry ladder above tier 0 when the config names none: about
+        8x the caps at a batch of at most 512, then a 64-read heavy-tail
+        tier.
+
+        FEM_TPU_TIERS overrides it: "none" for no ladder, or
+        semicolon-separated rungs of
+        "batch:cap_occ:cap_cand:verify_per_read:accept_per_read", the
+        tuning knob for heavy-tailed genomes where the retry tax dominates."""
         c = self.config
-        verify_cap = int(2 * c.batch_size * c.verify_per_read)
-        accept_cap = max(int(2 * c.batch_size * c.accept_per_read), 64)
+
+        def cap8(x):  # occurrence slabs are 8-slot-chunk aligned
+            return -(-x // 8) * 8
+
+        env = os.environ.get("FEM_TPU_TIERS")
+        if env == "none":
+            return ()
+        if env:
+            rungs = []
+            try:
+                for spec in env.split(";"):
+                    b, occ, cand, vpr, apr = (int(x) for x in spec.split(":"))
+                    if min(b, occ, cand, vpr, apr) < 1:
+                        raise ValueError("all fields must be >= 1")
+                    rungs.append(TierConfig(
+                        batch_size=b, cap_occ=cap8(occ), cap_cand=cap8(cand),
+                        verify_per_read=vpr, accept_per_read=apr,
+                    ))
+            except ValueError as exc:
+                raise ValueError(
+                    f"FEM_TPU_TIERS={env!r} is malformed ({exc}); expected "
+                    "semicolon-separated rungs of "
+                    "'batch:cap_occ:cap_cand:verify_per_read:accept_per_read'"
+                ) from exc
+            return tuple(rungs)
+
+        t1 = TierConfig(
+            batch_size=min(c.batch_size, 512),
+            cap_occ=cap8(max(8 * c.cap_occ, 512)),
+            cap_cand=cap8(max(8 * c.cap_cand, 512)),
+            verify_per_read=max(int(4 * c.verify_per_read), 32),
+            accept_per_read=max(int(4 * c.accept_per_read), 16),
+        )
+        t2 = TierConfig(
+            batch_size=min(c.batch_size, 64),
+            cap_occ=max(cap8(8 * t1.cap_occ), 4096),
+            cap_cand=max(cap8(8 * t1.cap_cand), 4096),
+            verify_per_read=max(8 * t1.verify_per_read, 2048),
+            accept_per_read=max(8 * t1.accept_per_read, 512),
+        )
+        return (t1, t2)
+
+    def _tier(self, tier: int) -> TierConfig:
+        if tier == 0:
+            c = self.config
+            return TierConfig(
+                batch_size=c.batch_size, cap_occ=c.cap_occ, cap_cand=c.cap_cand,
+                verify_per_read=c.verify_per_read, accept_per_read=c.accept_per_read,
+            )
+        return self.tiers[tier - 1]
+
+    @staticmethod
+    def _caps(tc: TierConfig) -> Tuple[int, int]:
+        """(verify slots, accept slots) of one device step at this tier."""
+        verify_cap = int(2 * tc.batch_size * tc.verify_per_read)
+        accept_cap = max(int(2 * tc.batch_size * tc.accept_per_read), 64)
         return verify_cap, accept_cap
 
-    def submit_batch(self, batch: ReadBatch):
-        """Run the device step on one batch; the result stays on the device
-        until `_drain` copies it back."""
-        c = self.config
+    def _upload(self, array: np.ndarray) -> torch.Tensor:
+        """A host array on the engine's device: staged in pinned memory and
+        copied without blocking the submitting thread (on the CPU, as is)."""
+        t = torch.from_numpy(np.ascontiguousarray(array))
+        if self._stream is None:
+            return t
+        staged = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        staged.copy_(t)
+        return staged.to(self.device, non_blocking=True)
+
+    def submit_batch(self, batch: ReadBatch, tier: int = 0, origins: list | None = None):
+        """Enqueue the device step of one batch and the copy of its result,
+        without waiting for either; pair with `drain_batch`. `tier` selects
+        the capacity rung: 0 = the config's own caps, >= 1 = the retry
+        ladder for reads that overflowed a smaller tier. Drain threads call
+        this too (retries), so it enters the engine's stream itself: the
+        current stream is per thread."""
+        tc = self._tier(tier)
         n = batch.num_reads
-        if n > c.batch_size:
-            raise ValueError(f"batch of {n} reads exceeds batch_size {c.batch_size}")
-        codes = torch.from_numpy(np.ascontiguousarray(batch.codes[:n])).to(self.device)
-        lengths = torch.from_numpy(
-            np.ascontiguousarray(batch.lengths[:n], np.int32)
-        ).to(self.device)
+        if n > tc.batch_size:
+            raise ValueError(
+                f"batch of {n} reads exceeds batch_size {tc.batch_size} of tier {tier}")
+        if tier > 0:
+            with self._fallback_lock:
+                self.tier_dispatches += 1
         params = FilterParams.from_args(
-            self.args, codes.shape[1], cap_occ=c.cap_occ, cap_cand=c.cap_cand,
+            self.args, batch.codes.shape[1], cap_occ=tc.cap_occ, cap_cand=tc.cap_cand,
         )
-        verify_cap, accept_cap = self._caps()
+        verify_cap, accept_cap = self._caps(tc)
         timer = self.stage_timer
-        if timer is not None:
-            timer.start()
-        out = map_core(
-            self.dindex, codes, lengths, params, verify_cap, accept_cap,
-            mark=timer.mark if timer is not None else None,
-        )
-        return batch, out
+        on_stream = (torch.cuda.stream(self._stream) if self._stream is not None
+                     else contextlib.nullcontext())
+        with on_stream:
+            codes = self._upload(batch.codes[:n])
+            lengths = self._upload(np.asarray(batch.lengths[:n], np.int32))
+            events = timer.begin() if timer is not None else None
+            out = map_core(
+                self.dindex, codes, lengths, params, verify_cap, accept_cap,
+                mark=(lambda stage: timer.mark(events, stage)) if timer is not None else None,
+            )
+            flat, ready = pack_result(out), None
+            if self._stream is not None:
+                # The copy stays on the compute stream (no cross-stream
+                # lifetime to track); the drain waits on the event only.
+                host = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
+                host.copy_(flat, non_blocking=True)
+                ready = torch.cuda.Event()
+                ready.record(self._stream)
+                flat = host
+        return self._register_pending(batch, flat, ready, tier, origins, events)
+
+    def _register_pending(self, batch, flat, ready, tier, origins, events) -> Pending:
+        seq = None
+        if tier == 0:
+            with self._pool_lock:
+                seq = self._seq
+                self._seq += 1
+                self._batch_state[seq] = [batch.num_reads, 0, False]
+        return Pending(batch, flat, ready, tier, seq, origins, events)
 
     def _map_read_fallback(self, name, seq, qual) -> Tuple[List[bytes], MappingStats]:
         """Exact host mapping of one read by the in-process C++ mapper."""
@@ -252,34 +449,158 @@ class MappingEngine:
         stats = MappingStats(*(int(x) for x in st))
         return ([blob] if blob else []), stats
 
-    def _drain(self, pending) -> Tuple[List[bytes], MappingStats]:
-        """Copy one batch's result to the host, emit its covered reads and
-        map its fallback reads exactly on the host, spliced back in read
-        order."""
-        batch, out = pending
-        host = to_host(out)
-        if self.stage_timer is not None:
-            self.stage_timer.collect()
+    def drain_batch(self, pending: Pending) -> Tuple[List[bytes], MappingStats]:
+        return self._drain(pending, per_read=False)
+
+    def _drain_stream(self, pending: Pending):
+        """Stream-mode drain: completion marks (batch drained, retry
+        resolved, watermark advance) are DEFERRED into `acks` closures that
+        map_stream runs only after the consumer has pulled the NEXT item,
+        i.e. after it had the chance to write this one's records. Marking
+        at drain time (drain threads run up to pipeline_depth batches ahead
+        of the consumer) would let a checkpoint taken right after a crash
+        skip drained-but-unwritten reads on resume."""
+        acks: list = []
+        recs, stats = self._drain(pending, per_read=False, acks=acks)
+        # Stream position: original (tier-0) batches advance it; retry
+        # batches re-emit reads already counted by their origin batch.
+        nreads = pending.batch.num_reads if pending.tier == 0 else 0
+        return recs, stats, acks, nreads
+
+    def _drain(self, pending: Pending, per_read: bool, acks: list | None = None):
+        """Wait for one dispatched batch's result, emit its covered reads,
+        and route its overflow reads (the device's per-read fallback bits)
+        onward: inherent-limit reads to the host mapper at once, capacity
+        reads to the next tier: pooled for a pipelined retry in stream
+        mode, mapped synchronously otherwise, with their records spliced
+        back in read order. With `per_read`, returns one record list per
+        read."""
+        batch, flat, ready, tier, seq, origins, events = pending
+        if ready is not None:
+            ready.synchronize()
+        if events is not None:
+            self.stage_timer.collect(events, tier)
         n = batch.num_reads
-        fb = host["fb"]
+        host = unpack_result(flat.numpy(), self._caps(self._tier(tier))[1], n)
+        fb, inh = host["fb"], host["inherent"]
         fb_idx = np.flatnonzero(fb)
-        want_per_read = fb_idx.size > 0
-        segs, stats = self._emit_native(batch, host, want_per_read)
+        inh_idx = fb_idx[inh[fb_idx]]  # no capacity tier can fix these
+        cap_idx = fb_idx[~inh[fb_idx]]
+        # Stream mode, tier 0: capacity reads wait in the retry pool and
+        # come out as items of their own; otherwise their records are
+        # spliced in here, like the inherent reads' always are.
+        pooled = tier == 0 and self._retry_pool is not None and bool(self.tiers)
+        splice = inh_idx.size > 0 or (cap_idx.size > 0 and not pooled)
+
+        blob, ends, stats = self._emit_native(batch, host, per_read or splice)
+        # A read is counted by whichever drain finally emits it.
         stats.num_reads = n - int(fb_idx.size)
-        for i in fb_idx:
-            segs[i], s = self._map_read_fallback(
+
+        replaced: Dict[int, list] = {}  # read -> its records from elsewhere
+        for i in inh_idx:
+            replaced[int(i)], s = self._map_read_fallback(
                 batch.names[i], batch.seqs[i], batch.quals[i]
             )
             stats += s
-        if want_per_read:
-            return [r for rsegs in segs for r in rsegs], stats
-        return segs, stats
+        reads = [(batch.names[i], batch.seqs[i], batch.quals[i]) for i in cap_idx]
+        if pooled:
+            with self._pool_lock:
+                self._batch_state[seq][1] = len(reads)
+                self._retry_pool.extend((seq, *r) for r in reads)
+        elif reads:
+            fb_segs, fb_stats = self._map_reads_at_tier(reads, tier + 1)
+            replaced.update(zip((int(i) for i in cap_idx), fb_segs))
+            stats += fb_stats
 
-    def _emit_native(
-        self, batch: ReadBatch, host: dict, want_per_read: bool
-    ) -> Tuple[list, MappingStats]:
+        def mark():
+            with self._pool_lock:
+                for s0 in origins or ():
+                    st = self._batch_state.get(s0)
+                    if st is not None:
+                        st[1] -= 1
+                if seq is not None:
+                    self._batch_state[seq][2] = True
+            self._advance_watermark()
+
+        if acks is None:
+            mark()
+        else:
+            acks.append(mark)
+
+        if ends is None:
+            return ([blob] if blob else []), stats
+        # The emitter's blob holds the covered reads' records in read order
+        # and nothing for a fallback read; ends[r] is read r's end in it.
+        starts = np.concatenate([[0], ends[:-1]])
+        if per_read:
+            segs = [[blob[a:b]] if b > a else [] for a, b in zip(starts.tolist(), ends.tolist())]
+            for i, recs in replaced.items():
+                segs[i] = recs
+            return segs, stats
+        chunks, prev = [], 0
+        for i in sorted(replaced):  # cut the blob only where records go in
+            chunks.append(blob[prev : int(starts[i])])
+            chunks.extend(replaced[i])
+            prev = int(ends[i])
+        chunks.append(blob[prev:])
+        return [c for c in chunks if c], stats
+
+    def _advance_watermark(self) -> None:
+        with self._pool_lock:
+            while True:
+                st = self._batch_state.get(self._watermark_seq)
+                if st is None or not st[2] or st[1] > 0:
+                    break
+                self._watermark_reads += st[0]
+                del self._batch_state[self._watermark_seq]
+                self._watermark_seq += 1
+
+    @property
+    def watermark_reads(self) -> int:
+        """Reads in the longest fully-emitted stream prefix: the safe
+        resume offset for checkpointing (deferred retries included)."""
+        return self._watermark_reads
+
+    def _subbatch(self, reads) -> ReadBatch:
+        """A device batch from [(name, seq, qual)] triples."""
+        lengths = np.array([len(sq) for _, sq, _ in reads], np.int32)
+        Lmax = max(128, -(-int(lengths.max()) // 32) * 32)
+        codes = np.full((len(reads), Lmax), 4, np.uint8)
+        for i, (_, sq, _) in enumerate(reads):
+            codes[i, : len(sq)] = encode(sq)
+        return ReadBatch(
+            [nm for nm, _, _ in reads], [sq for _, sq, _ in reads],
+            [ql for _, _, ql in reads], codes, lengths,
+        )
+
+    def _map_reads_at_tier(self, reads, tier):
+        """Map `reads` [(name, seq, qual)] again at the given retry tier,
+        synchronously (the exact host mapper past the last tier). Returns
+        one record list per read and their recomputed stats."""
+        stats = MappingStats()
+        per = []
+        if tier > len(self.tiers):
+            for nm, sq, ql in reads:
+                r, s = self._map_read_fallback(nm, sq, ql)
+                per.append(r)
+                stats += s
+            return per, stats
+        with self._fallback_lock:
+            self.retried_reads += len(reads)
+        B_t = self._tier(tier).batch_size
+        for lo in range(0, len(reads), B_t):
+            sub = self._subbatch(reads[lo : lo + B_t])
+            segs, s = self._drain(self.submit_batch(sub, tier), per_read=True)
+            per.extend(segs)
+            stats += s
+        return per, stats
+
+    def _emit_native(self, batch: ReadBatch, host: dict, want_ends: bool):
         """Counters from the device sums and one native call for the
-        mapping sort, traceback and SAM formatting."""
+        mapping sort, traceback and SAM formatting: (SAM blob of the covered
+        reads in read order, per-read end offsets into it or None, stats).
+        Drain threads call it side by side: the native call releases the
+        interpreter lock."""
         n = batch.num_reads
         stats = MappingStats(
             num_candidates=host["sum_nc"],
@@ -304,26 +625,94 @@ class MappingEngine:
             host["a_sid"][:k][order].astype(np.int32),
             host["a_pos"][:k][order].astype(np.int64),
             host["a_end"][:k][order].astype(np.int32),
-            want_read_ends=want_per_read,
+            want_read_ends=want_ends,
         )
-        if want_per_read:
-            blob, ends = res
-            segs, prev = [], 0
-            for r in range(n):
-                e_ = int(ends[r])
-                segs.append([blob[prev:e_]] if e_ > prev else [])
-                prev = e_
-            return segs, stats
-        return ([res] if res else []), stats
+        blob, ends = res if want_ends else (res, None)
+        return blob, ends, stats
 
     def map_batch(self, batch: ReadBatch) -> Tuple[List[bytes], MappingStats]:
-        """Map one read batch synchronously: SAM chunks in read order + stats."""
-        return self._drain(self.submit_batch(batch))
+        """Map one read batch synchronously: SAM chunks in read order
+        (capacity-overflow reads are mapped again on higher tiers and their
+        records spliced back in place) + stats."""
+        return self.drain_batch(self.submit_batch(batch))
 
     def map_stream(
-        self, batches: Iterable[ReadBatch]
+        self, batches: Iterable[ReadBatch], depth: int | None = None,
+        ordered: bool = False,
     ) -> Iterator[Tuple[List[bytes], MappingStats]]:
-        """Map a stream of batches one at a time, in order."""
-        for batch in batches:
-            if batch.num_reads:
-                yield self.map_batch(batch)
+        """Map a stream of batches keeping `depth` batches in flight
+        (default: the config's pipeline_depth): batch N + 1's device step
+        is enqueued while drain threads wait for, emit and hand over batch
+        N (the reference's reader/mapper/writer overlap,
+        src/FEM_map.c:174-198).
+
+        With `ordered`, capacity-overflow reads are mapped again
+        synchronously inside each batch's drain and their records spliced
+        back in read order, so the output is an exact read-order prefix at
+        every yield: what checkpoint/resume needs to truncate and resume
+        without losing or doubling a record. It serializes only the (rare)
+        overflow reads; the unordered stream pipelines them instead.
+
+        Unordered: capacity-overflow reads of drained batches gather in a
+        retry pool and go out again as pipelined tier-1 batches (deeper
+        tiers run synchronously inside those drains), so heavy-tailed
+        genomes keep the pipeline full. Original batches yield in
+        submission order with overflow reads' records left out; retry
+        batches yield as extra (records, stats) items. Record set and
+        counter totals are exact, the reference's unordered t>1 emission
+        contract (src/FEM_map.c:182-189). An exception in a drain thread
+        is raised to the consumer and ends the stream."""
+        depth = depth or self.config.pipeline_depth
+        pool: list = []
+        self._retry_pool = None if ordered else pool
+        retry_B = self._tier(1).batch_size if self.tiers and not ordered else 0
+        self.consumed_reads = 0  # stream position of the last consumed item
+
+        def consume(item):
+            # Completion marks run only after the consumer pulls the NEXT
+            # item: by then it has had the chance to persist this one's
+            # records, so the checkpoint watermark never runs ahead of the
+            # output file (see _drain_stream). `consumed_reads` advances
+            # BEFORE the yield: it is the stream position INCLUDING the
+            # item the consumer is handling (in ordered mode, the exact
+            # read count whose records the consumer will have written once
+            # it has processed the item).
+            recs, stats, acks, nreads = item
+            self.consumed_reads += nreads
+            yield recs, stats
+            for a in acks:
+                a()
+
+        q: deque = deque()
+        try:
+            with ThreadPoolExecutor(max_workers=max(2, depth)) as ex:
+
+                def flush_retries(min_fill: int):
+                    while True:
+                        with self._pool_lock:
+                            if len(pool) < max(min_fill, 1):
+                                return
+                            take = pool[:retry_B]
+                            del pool[:retry_B]
+                        rb = self._subbatch([r[1:] for r in take])
+                        with self._fallback_lock:
+                            self.retried_reads += rb.num_reads
+                        pending = self.submit_batch(
+                            rb, tier=1, origins=[r[0] for r in take])
+                        q.append(ex.submit(self._drain_stream, pending))
+
+                for batch in batches:
+                    if not batch.num_reads:
+                        continue
+                    q.append(ex.submit(self._drain_stream, self.submit_batch(batch)))
+                    if retry_B:
+                        flush_retries(retry_B)
+                    while len(q) > depth:
+                        yield from consume(q.popleft().result())
+                while q or pool:
+                    while q:
+                        yield from consume(q.popleft().result())
+                    if retry_B:
+                        flush_retries(1)
+        finally:
+            self._retry_pool = None

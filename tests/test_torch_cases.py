@@ -93,6 +93,63 @@ def tail_cases(shape):
 TAIL_CASE_NAMES = [f"count_{n}" for n in TAIL_COUNTS] + list(TAIL_CHAINS)
 
 
+# ---- the retry tiers' wide slabs -------------------------------------------
+# cap_occ + cap_cand of the default ladder's tier 1 and tier 2 shapes (at a
+# smaller G where the slab is wide, to keep the plain version's loop short),
+# one between, and one above 8192, where the kernel's scratch leaves shared
+# memory for a workspace.
+WIDE_SHAPES = {
+    "tier1_640_512": dict(G=3, CAP=640, CC=512, e=5),
+    "mid_2048_1024": dict(G=2, CAP=2048, CC=1024, e=5),
+    "tier2_4096_4096": dict(G=2, CAP=4096, CC=4096, e=3),
+    "workspace_8200_64": dict(G=2, CAP=8200, CC=64, e=5),
+}
+WIDE_COUNTS = (0, 1, 33, "half", "full")
+WIDE_CHAINS = ("gap_e", "gap_e_plus_1", "overflow_by_one", "fills_exactly")
+WIDE_CASE_NAMES = [f"count_{n}" for n in WIDE_COUNTS] + list(WIDE_CHAINS)
+WIDE_LANES = 2  # lanes per case
+
+
+def wide_chain_slabs(rng, shape, kind, NB=WIDE_LANES):
+    """One-sid chains at the fold's edges, spread over the first two groups
+    so that cap_cand + 1 keys fit slabs no wider than cap_cand."""
+    G, CAP, CC, e = (shape[k] for k in ("G", "CAP", "CC", "e"))
+    sid = np.zeros((NB, G, CAP), np.int32)
+    diag = np.zeros((NB, G, CAP), np.int32)
+    valid = np.zeros((NB, G, CAP), bool)
+
+    def put(b, g, diags):
+        slots = rng.permutation(CAP)[: len(diags)]
+        diag[b, g, slots], valid[b, g, slots] = diags, True
+
+    def split(b, chain):  # alternate keys between groups 0 and 1
+        put(b, 0, chain[0::2])
+        put(b, 1, chain[1::2])
+
+    for b in range(NB):
+        start = int(rng.integers(1, 50))
+        if kind == "gap_e":  # every second key is kept
+            split(b, start + e * np.arange(min(CAP, 400)))
+        elif kind == "gap_e_plus_1":  # every key is a chain head: all kept
+            split(b, start + (e + 1) * np.arange(CC // 2))
+        elif kind == "overflow_by_one":  # cap_cand + 1 kept keys
+            split(b, start + (e + 1) * np.arange(CC + 1))
+        elif kind == "fills_exactly":  # cap_cand kept keys, no overflow
+            split(b, start + (e + 1) * np.arange(CC))
+    return masked(sid, diag, valid)
+
+
+def wide_tail_cases(shape):
+    """name -> (sid, diag) of WIDE_LANES lanes each, in WIDE_CASE_NAMES order."""
+    rng = np.random.default_rng(777 + shape["CAP"])
+    cases = {}
+    for n in WIDE_COUNTS:
+        nvalid = shape["CAP"] // 2 if n == "half" else n
+        cases[f"count_{n}"] = count_slabs(rng, shape, nvalid, NB=WIDE_LANES)
+    cases.update({k: wide_chain_slabs(rng, shape, k) for k in WIDE_CHAINS})
+    return cases
+
+
 
 def slot_case(ref, e, Lmax, seed, NB=48, V=400):
     """Slots against reads copied from the reference with edits (so part are

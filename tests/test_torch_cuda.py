@@ -23,8 +23,17 @@ from fem_tpu_torch.io.fastx import ReadBatch
 from fem_tpu_torch.ops.filter_tail import filter_tail, filter_tail_plain
 from fem_tpu_torch.ops.types import BIG, SENTINEL_SID, device_index_from_host
 from fem_tpu_torch.ops.verify import verify_candidates, verify_candidates_plain
-from fem_tpu_torch.pipeline.engine import EngineConfig, MappingEngine
-from test_torch_cases import TAIL_CASE_NAMES, TAIL_SHAPE, slot_case, tail_cases
+from fem_tpu_torch.pipeline.engine import EngineConfig, MappingEngine, TierConfig
+from fem_tpu_torch.stats import MappingStats
+from test_torch_cases import (
+    TAIL_CASE_NAMES,
+    TAIL_SHAPE,
+    WIDE_CASE_NAMES,
+    WIDE_SHAPES,
+    slot_case,
+    tail_cases,
+    wide_tail_cases,
+)
 
 
 @pytest.fixture
@@ -55,6 +64,7 @@ def test_filter_tail_kernel_matches_plain(cuda, NB, G, CAP, CC, e, a):
     got = filter_tail(sid, diag, CC, e, a)
     torch.cuda.synchronize()
     assert kernels.launches["filter_tail"] == 1
+    assert kernels.launches_by_shape()["filter_tail"] == {(CAP, CC): 1}
     for g, w in zip(got, filter_tail_plain(sid, diag, CC, e, a)):
         assert torch.equal(g, w)
 
@@ -83,10 +93,46 @@ def test_filter_tail_kernel_eviction(cuda):
     assert not ovf.item()
 
 
+@pytest.mark.parametrize("a", [0, 1, 2])
+@pytest.mark.parametrize("shape_name", list(WIDE_SHAPES))
+def test_filter_tail_kernel_wide_slabs(cuda, shape_name, a):
+    """The retry tiers' widths (scratch in shared memory, one warp a block)
+    and one above 8192 (scratch in a workspace): valid counts 0, 1, 33,
+    half, full, chains, exact fill and overflow by one."""
+    shape = WIDE_SHAPES[shape_name]
+    cases = wide_tail_cases(shape)
+    sid, diag = (torch.from_numpy(np.concatenate([cases[n][i] for n in WIDE_CASE_NAMES]))
+                 .to(cuda) for i in (0, 1))
+    CC, e = shape["CC"], shape["e"]
+    kernels.reset_launches()
+    got = filter_tail(sid, diag, CC, e, a)
+    torch.cuda.synchronize()
+    assert kernels.launches["filter_tail"] == 1
+    for g, w in zip(got, filter_tail_plain(sid, diag, CC, e, a)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize(
+    "NB,G,CAP,CC",
+    [(1024, 3, 640, 512), (128, 3, 4096, 4096), (128, 3, 5120, 4096),
+     (700, 2, 9000, 64), (3, 1, 20000, 8)],
+)
+def test_filter_tail_kernel_wide_random(cuda, NB, G, CAP, CC):
+    """Dense random slabs at the default ladder's shapes; more lanes than
+    workspace rows (700 > 528), so blocks walk over several lanes."""
+    sid, diag = (x.to(cuda) for x in _slabs(np.random.default_rng(CAP), NB, G, CAP,
+                                            spread=3 * CAP))
+    got = filter_tail(sid, diag, CC, 5, 1)
+    torch.cuda.synchronize()
+    for g, w in zip(got, filter_tail_plain(sid, diag, CC, 5, 1)):
+        assert torch.equal(g, w)
+
+
 def test_filter_tail_kernel_rejects_bad_input(cuda):
     sid, diag = (x.to(cuda) for x in _slabs(np.random.default_rng(1), 4, 3, 500))
-    with pytest.raises(ValueError, match="512"):
-        filter_tail(sid, diag, 16, 5, 1)  # 16 + 500 > 512
+    got = filter_tail(sid, diag, 16, 5, 1)  # 16 + 500 > 512: no width is refused
+    for g, w in zip(got, filter_tail_plain(sid, diag, 16, 5, 1)):
+        assert torch.equal(g, w)
     with pytest.raises(ValueError, match="contiguous"):
         filter_tail(sid.transpose(0, 1), diag.transpose(0, 1), 16, 5, 1)
     with pytest.raises(TypeError):
@@ -119,6 +165,7 @@ def test_myers_kernel_matches_plain(cuda, small_reference, small_index, e):
     got = verify_candidates(index, *args, e)
     torch.cuda.synchronize()
     assert kernels.launches["banded_myers"] == 1
+    assert kernels.launches_by_shape()["banded_myers"] == {(V, NB): 1}
     want = verify_candidates_plain(index, *args, e)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
@@ -174,3 +221,54 @@ def test_engine_on_cuda_matches_golden(cuda, small_reference, small_index, defau
     assert b"".join(recs) == b"".join(grecs)
     assert dataclasses.asdict(stats) == dataclasses.asdict(gstats)
     assert kernels.launches == {"banded_myers": 1, "filter_tail": 1}
+
+
+TIERS = (
+    TierConfig(batch_size=16, cap_occ=256, cap_cand=256,
+               verify_per_read=64, accept_per_read=32),
+    TierConfig(batch_size=8, cap_occ=2048, cap_cand=1024,
+               verify_per_read=512, accept_per_read=128),
+)
+
+
+@pytest.mark.parametrize("ordered", [False, True])
+def test_pipelined_engine_with_tiers_on_cuda_matches_golden(cuda, tmp_path, ordered):
+    """The pipelined stream with a two-rung ladder on a satellite genome
+    (tests/test_torch_stream.py's world) on the card: record set and
+    counters equal to golden, bytes too when ordered; the filter tail ran
+    at every tier's width."""
+    from fem_tpu_torch.config import FemArgs
+    from fem_tpu_torch.index.build import build_index
+    from fem_tpu_torch.io import fastx
+
+    seqs = sim.satellite_genome(250_000, num_seqs=1, seed=17, satellite_fraction=0.15,
+                                unit_range=(24, 120), copies_range=(48, 400))
+    sim.write_fasta(str(tmp_path / "ref.fa"), seqs)
+    ref = fastx.read_fasta(str(tmp_path / "ref.fa"))
+    index = build_index(ref, kmer_size=12, step_size=3)
+    args = FemArgs(error_threshold=3, num_additional_qgrams=1)
+    reads = sim.simulate_reads(seqs, 96, read_length=100, max_errors=2, seed=18)
+    engine = MappingEngine(
+        args, ref, index,
+        EngineConfig(batch_size=16, cap_occ=32, cap_cand=32, verify_per_read=4,
+                     accept_per_read=2, tiers=TIERS),
+    )
+    kernels.reset_launches()
+    recs, total = [], MappingStats()
+    batches = [_batch(reads[i : i + 16]) for i in range(0, 96, 16)]
+    for r, st in engine.map_stream(batches, ordered=ordered):
+        recs.extend(r)
+        total += st
+    grecs, gstats = GoldenMapper(args, ref, index).map_reads(
+        [r.name for r in reads], [r.seq for r in reads], [r.qual for r in reads])
+    lines = lambda chunks: sorted(x for c in chunks for x in c.splitlines())
+    assert lines(recs) == lines(grecs)
+    if ordered:
+        assert b"".join(recs) == b"".join(grecs)
+    assert dataclasses.asdict(total) == dataclasses.asdict(gstats)
+    assert engine.retried_reads > 0 and engine.tier_dispatches > 0
+    assert engine.watermark_reads == engine.consumed_reads == 96
+    assert kernels.launches["filter_tail"] == 6 + engine.tier_dispatches
+    tail_shapes = kernels.launches_by_shape()["filter_tail"]
+    assert tail_shapes[(32, 32)] == 6
+    assert sum(tail_shapes.get((t.cap_occ, t.cap_cand), 0) for t in TIERS) == engine.tier_dispatches

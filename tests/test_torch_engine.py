@@ -14,7 +14,13 @@ from fem_tpu import sim
 from fem_tpu.golden.model import GoldenMapper, MappingStats
 from fem_tpu.pipeline.engine import map_core as jmap_core
 from fem_tpu_torch.ops.types import device_index_from_jax
-from fem_tpu_torch.pipeline.engine import EngineConfig, MappingEngine, map_core, to_host
+from fem_tpu_torch.pipeline.engine import (
+    EngineConfig,
+    MappingEngine,
+    map_core,
+    pack_result,
+    unpack_result,
+)
 from tests.test_engine import _batch_from_reads
 
 torch.set_num_threads(1)
@@ -49,7 +55,7 @@ def test_map_core_matches_jax():
         )
     assert want["retry"].any() and not want["retry"].all()
     # The host copy carries the same hits and pack_outputs' derived fields.
-    host = to_host(got)
+    host = unpack_result(pack_result(got).numpy(), max(accept_cap, 8), codes.shape[0])
     assert host["n_accepted"] == accept_cap
     np.testing.assert_array_equal(host["a_pos"], want["a_pos"])
     B = codes.shape[0]
@@ -104,13 +110,14 @@ def test_engine_mixed_lengths_and_ns(engine_world):
 
 
 def test_engine_host_fallback_and_stream(small_reference, small_index, default_args):
-    """Caps so tight that reads overflow: they are mapped exactly on the
-    host and spliced back in read order; a stream of batches adds up."""
+    """Caps so tight that reads overflow, and no retry ladder: they are
+    mapped exactly on the host and spliced back in read order; a stream of
+    batches adds up."""
     seqs, ref = small_reference
     engine = MappingEngine(
         default_args, ref, small_index,
         EngineConfig(batch_size=32, cap_occ=8, cap_cand=2, verify_per_read=1,
-                     accept_per_read=0.5),
+                     accept_per_read=0.5, tiers=()),
         device="cpu",
     )
     golden = GoldenMapper(default_args, ref, small_index)

@@ -22,6 +22,7 @@ from fem_tpu.io import fastx as jfastx
 from fem_tpu.io import sam as jsam
 from fem_tpu.native import NativeEmitter as JEmitter
 from fem_tpu.native.mapper import NativeCpuMapper as JMapper
+from fem_tpu.pipeline import prefetch as jprefetch
 import fem_tpu_torch.config as tconfig
 import fem_tpu_torch.sim as tsim
 from fem_tpu_torch import _build
@@ -32,6 +33,7 @@ from fem_tpu_torch.io import fastx as tfastx
 from fem_tpu_torch.io import sam as tsam
 from fem_tpu_torch.native import NativeCpuMapper, NativeEmitter
 from fem_tpu_torch.native import build as tnative
+from fem_tpu_torch.pipeline import prefetch as tprefetch
 from fem_tpu_torch.pipeline.engine import EngineConfig, MappingEngine
 from fem_tpu_torch.stats import MappingStats
 
@@ -162,6 +164,25 @@ def test_mapping_stats_fields_and_iadd():
     b += JStats(10, 20, 30, 40, 50)
     assert dataclasses.asdict(a) == dataclasses.asdict(b)
     assert dataclasses.asdict(MappingStats()) == dataclasses.asdict(JStats())
+
+
+@pytest.mark.parametrize("capacity", [1, 4])
+def test_prefetch_same_items_and_errors(capacity):
+    """pipeline/prefetch.py: the background source hands over the same
+    items in order, and raises the producer's error at the same place."""
+    def failing():
+        yield from range(5)
+        raise ValueError("parse error")
+
+    for mod in (jprefetch, tprefetch):
+        assert list(mod.ThreadedBatchSource(range(20), capacity=capacity)) == list(range(20))
+        got = []
+        with pytest.raises(ValueError, match="parse error"):
+            for item in mod.ThreadedBatchSource(failing(), capacity=capacity):
+                got.append(item)
+        assert got == list(range(5))
+    with open(jprefetch.__file__, "rb") as a, open(tprefetch.__file__, "rb") as b:
+        assert a.read() == b.read()
 
 
 def test_native_library_is_the_ports_own():
