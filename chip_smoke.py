@@ -67,6 +67,28 @@ exits non-zero without its result line:
               version, then timed warm and cold like phase 4. On the main
               path the slabs were written just before the kernel runs, so
               the warm number is the nearer one there.
+  7. cli      the command line on the benign point's files, as a user runs
+              it (fem_tpu_torch/pipeline/cli.py): `index 12 3` must write
+              phase 3's index bytes; `map` with the benign point's flags
+              (B=16384, --cap-occ 80 --cap-cand 16 --verify-per-read 2
+              --accept-per-read 0.85, the default ladder) in this process,
+              the kernels' counts set to 0 just before and read just after:
+              both kernels launched at the tier-0 shapes, SAM records and
+              the five stderr counters == fem_baseline, the --stats-json
+              file agreeing; `map --checkpoint` (the ordered stream), each
+              checkpoint's offset on disk when it is written, then a crash
+              after the first checkpoint (a garbage tail) and a resume that
+              must be byte-equal to the full run; `python -m fem_tpu_torch
+              map -t 1` and `-t 2` as processes of their own, in turns,
+              each equal to the in-process run. Walls include process
+              start and index load; the peak device memory is the
+              in-process run's. A kernel row's `launches_cli` is the
+              in-process run's count at the row's shape.
+  8. bench    `python -m fem_tpu_torch.bench` as a process of its own at
+              131,072 benign and 65,536 adversarial reads (bench.py's
+              defaults are 327,680 and 163,840): both JSON lines must be
+              equal to fem_baseline for every swept worker count (2 and 1),
+              and its workers must have launched both kernels.
 
 Each kernel's bound is the least time the card could take for the same
 inputs: the bytes it must move (inputs once, outputs once) over 3.35 TB/s,
@@ -81,7 +103,6 @@ The line before the last is the kernel table as JSON; the last line is
 from __future__ import annotations
 
 import collections
-import hashlib
 import json
 import os
 import re
@@ -100,7 +121,6 @@ NUM_READS = 65_536
 BATCH = 16_384
 E, A = 5, 1
 KMER, STEP = 12, 3
-_DIG_MOD = 1 << 128
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 INT32_LANES_PER_SM = 64
 # int32 instructions a Myers step cannot do without: 11 for the recurrence of
@@ -229,28 +249,20 @@ def max_abs_err(got, want) -> int:
 
 
 def digest_lines(chunks) -> tuple[int, int]:
-    """Order-independent digest of SAM record lines (as bench.py): the sum
-    of per-record blake2b-128 digests mod 2^128, and the record count."""
-    dig = cnt = 0
-    for chunk in chunks:
-        for line in chunk.split(b"\n"):
-            if line and not line.startswith(b"@"):
-                cnt += 1
-                dig = (dig + int.from_bytes(
-                    hashlib.blake2b(line, digest_size=16).digest(), "little"
-                )) % _DIG_MOD
-    return dig, cnt
+    """Order-independent digest of SAM record lines, the bench's: the sum of
+    per-record blake2b-128 digests mod 2^128, and the record count."""
+    from fem_tpu_torch.bench import _digest_lines
+
+    return _digest_lines(chunks)
 
 
 def counters_from_stderr(stderr: str) -> list[int]:
-    """The five counters the reference prints (src/FEM_map.c:214-218)."""
-    out = []
-    for pat in (r"The number of read: (\d+)", r"The number of mapped read: (\d+)",
-                r"additional q-gram filter: (\d+)", r"The number of candidate: (\d+)",
-                r"The number of mapping: (\d+)"):
-        m = re.search(pat, stderr)
-        check(m is not None, f"fem_baseline printed no counter {pat!r}")
-        out.append(int(m.group(1)))
+    """The five counters the reference prints (src/FEM_map.c:214-218), read
+    as the bench reads them; a missing one is an error."""
+    from fem_tpu_torch.bench import _counters_from_stderr
+
+    out = _counters_from_stderr(stderr)
+    check(len(out) == 5, f"no five counter lines in: {stderr[-2000:]}")
     return out
 
 
@@ -962,6 +974,178 @@ def _profiled_run(tag: str, engine, probe, batches, digest) -> None:
         f"{1 - busy_ms / wall_ms:.1%} of the wall; largest: "
         + "; ".join(f"{k[:48]} {t / 1e3:.2f} ms x{c}" for k, t, c in top))
 
+# Phase 7's tuning flags: the benign point's EngineConfig on the command line.
+CLI_TUNE = ["--batch-size", str(BATCH), "--cap-occ", "80", "--cap-cand", "16",
+            "--verify-per-read", "2", "--accept-per-read", "0.85"]
+COUNTER_KEYS = ("num_reads", "num_mapped_reads", "num_candidates_without_additional_qgram_filter",
+                "num_candidates", "num_mappings")
+# Phase 8: the bench at a reduced read count (bench.py's defaults are
+# 327,680 benign and 163,840 adversarial reads).
+BENCH_ENV = {"FEM_BENCH_READS": "131072", "FEM_BENCH_ADV_READS": "65536"}
+REPO = os.path.dirname(os.path.abspath(__file__))
+
+
+def _child_env(**extra) -> dict:
+    return dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""),
+                **extra)
+
+
+def _run_cli(argv: list[str]) -> tuple[int, str, float]:
+    """fem_tpu_torch.pipeline.cli.main(argv) in this process: its exit
+    code, its stderr and its wall in seconds."""
+    import contextlib
+    import io
+
+    from fem_tpu_torch.pipeline import cli
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(buf):
+        rc = cli.main(argv)
+    return rc, buf.getvalue(), time.perf_counter() - t0
+
+
+def _sam_digest(path: str) -> tuple[int, int]:
+    with open(path, "rb") as f:
+        return digest_lines([f.read()])
+
+
+def _time_line(err: str) -> str:
+    m = re.search(r"^Time: ([0-9.]+)s$", err, re.M)
+    return f"{float(m.group(1)):.2f} s" if m else "not printed"
+
+
+def phase_cli(workdir: str, paths: dict) -> dict:
+    """The command line on the benign point's files, as a user runs it:
+    `index` (byte-equal to phase 3's index), `map` in this process (kernel
+    launches by shape, records and counters == fem_baseline, the stats
+    JSON), `map --checkpoint` with a simulated crash and a resume (byte-equal
+    to the full checkpointed run; every checkpoint's offset on disk), and
+    `python -m fem_tpu_torch map -t 1` and `-t 2` as processes of their own,
+    in turns, each equal to the in-process run. Returns the kernels'
+    launches by shape in the in-process run."""
+    from fem_tpu_torch import kernels
+    from fem_tpu_torch.pipeline import cli
+    from fem_tpu_torch.stats import MappingStats
+
+    d = os.path.join(workdir, "cli")
+    os.makedirs(d)
+    ix = os.path.join(d, "ref.index")
+    rc, err, wall = _run_cli(["index", str(KMER), str(STEP), paths["fa"], ix])
+    check(rc == 0, f"cli index failed: {err[-2000:]}")
+    with open(ix, "rb") as a, open(paths["ix"], "rb") as b:
+        check(a.read() == b.read(), "the CLI's index differs from phase 3's")
+    log(f"[cli] index 12 3: {wall:.1f} s, byte-equal to phase 3's ({os.path.getsize(ix)} bytes)")
+    base = ["map", "-e", str(E), "-a", str(A), "--ref", paths["fa"], "--index", ix,
+            "--read1", paths["fq"], *CLI_TUNE]
+
+    # map in this process: the counts set to 0 just before, read just after.
+    sam, js = os.path.join(d, "t1.sam"), os.path.join(d, "t1.json")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    rc, err, wall = _run_cli(base + ["-o", sam, "--stats-json", js])
+    shapes = kernels.launches_by_shape()
+    peak = torch.cuda.max_memory_allocated()
+    check(rc == 0, f"cli map failed: {err[-2000:]}")
+    counters = counters_from_stderr(err)
+    with open(js) as f:
+        stats = json.load(f)
+    log(f"[cli] map -t 1 in this process: {wall:.2f} s wall (reference and index load "
+        f"included) = {NUM_READS / wall:,.1f} reads/s; its Time line (engine set-up and "
+        f"mapping) {_time_line(err)}; stats JSON {stats['reads_per_s']:,.1f} reads/s, "
+        f"retried {stats['retried_reads']}, host-mapped {stats['fallback_reads']}; peak "
+        f"device memory {peak / 2**30:.3f} GiB; filter_tail launches by (cap_occ, cap_cand) "
+        f"{shapes['filter_tail']}, banded_myers by (slots, lanes) {shapes['banded_myers']}")
+    check(shapes["filter_tail"].get((80, 16), 0) > 0
+          and shapes["banded_myers"].get((4 * BATCH, 2 * BATCH), 0) > 0,
+          "cli map: a kernel was launched no time at the tier-0 shapes")
+    check(stats["mapping_stats"] == dict(zip(COUNTER_KEYS, counters))
+          and stats["reads"] == NUM_READS, "cli map: the stats JSON disagrees with stderr")
+    full = {"digest": _sam_digest(sam), "stats": MappingStats(*counters)}
+    baseline_check("cli", paths, full)
+
+    # --checkpoint, then a crash after the first checkpoint and a resume.
+    ck, ck_sam, crash_sam = (os.path.join(d, f) for f in ("progress", "ck.sam", "crash.sam"))
+    seen = []
+    real = cli._write_checkpoint
+
+    def checked(path, hist):
+        seen.append((hist[-1][1], os.path.getsize(ck_sam)))
+        real(path, hist)
+
+    cli._write_checkpoint = checked
+    try:
+        rc, err, wall = _run_cli(base + ["-o", ck_sam, "--checkpoint", ck])
+    finally:
+        cli._write_checkpoint = real
+    check(rc == 0, f"cli map --checkpoint failed: {err[-2000:]}")
+    with open(ck) as f:
+        hist = [tuple(map(int, line.split())) for line in f if line.strip()]
+    with open(ck_sam, "rb") as f:
+        ck_bytes = f.read()
+    check([h[0] for h in hist] == [BATCH * (i + 1) for i in range(NUM_READS // BATCH)]
+          and hist[-1][1] == len(ck_bytes), f"cli map --checkpoint: history {hist}")
+    check(all(off == size for off, size in seen) and len(seen) == len(hist),
+          f"a checkpoint's offset was not on disk: {seen}")
+    check(digest_lines([ck_bytes]) == full["digest"]
+          and counters_from_stderr(err) == counters,
+          "cli map --checkpoint (ordered stream) gave other records or counters")
+    with open(ck, "w") as f:
+        f.write(f"{hist[0][0]} {hist[0][1]}\n")
+    with open(crash_sam, "wb") as f:
+        f.write(ck_bytes[:hist[0][1]] + b"read999\tGARBAGE-PARTIAL-RECORD")
+    rc, err2, wall2 = _run_cli(base + ["-o", crash_sam, "--checkpoint", ck])
+    check(rc == 0 and f"Resuming after {hist[0][0]} reads." in err2,
+          f"cli map resume failed: {err2[-2000:]}")
+    with open(crash_sam, "rb") as f:
+        check(f.read() == ck_bytes, "the resumed run is not byte-equal to the full run")
+    log(f"[cli] map --checkpoint: {wall:.2f} s, {len(hist)} checkpoints, each offset on "
+        f"disk when written; crash after {hist[0][0]} reads with a garbage tail, resume "
+        f"{wall2:.2f} s: byte-equal to the full run ({len(ck_bytes)} bytes)")
+
+    # -t 1 and -t 2 as processes of their own, in turns.
+    torch.cuda.empty_cache()
+    for t in (1, 2, 2, 1):
+        out = os.path.join(d, f"p{t}.sam")
+        t0 = time.perf_counter()
+        p = subprocess.run([sys.executable, "-m", "fem_tpu_torch", *base, "-t", str(t),
+                            "-o", out], env=_child_env(), capture_output=True, text=True,
+                           timeout=600)
+        wall = time.perf_counter() - t0
+        check(p.returncode == 0, f"python -m fem_tpu_torch map -t {t} failed: {p.stderr[-3000:]}")
+        check(_sam_digest(out) == full["digest"] and counters_from_stderr(p.stderr) == counters,
+              f"map -t {t}: records or counters differ from the in-process run")
+        os.remove(out)
+        log(f"[cli] python -m fem_tpu_torch map -t {t}: {wall:.2f} s wall (process start, "
+            f"torch import, index load included) = {NUM_READS / wall:,.1f} reads/s; Time "
+            f"line {_time_line(p.stderr) if t == 1 else 'not printed by the parent'}; "
+            f"records and counters equal to -t 1 in this process")
+    return shapes
+
+
+def phase_bench() -> None:
+    """python -m fem_tpu_torch.bench as a process of its own at a reduced
+    read count: both JSON lines must be record-equal to fem_baseline for
+    every swept worker count, with kernel launches in its workers."""
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-m", "fem_tpu_torch.bench"],
+                       env=_child_env(**BENCH_ENV), capture_output=True, text=True, timeout=900)
+    for line in p.stderr.splitlines():
+        if line.startswith("[bench]"):
+            log(line)
+    check(p.returncode == 0, f"the bench failed (rc {p.returncode}): {p.stderr[-3000:]}")
+    lines = [json.loads(x) for x in p.stdout.splitlines() if x.startswith("{")]
+    check(len(lines) == 2, f"the bench printed {len(lines)} JSON lines, not 2")
+    for line in lines:
+        log(f"[bench] line: {json.dumps(line)}")
+        check(line["records_equal"] is True
+              and line["records_equal_by_workers"] == {"2": True, "1": True},
+              f"bench: a worker count is not equal to fem_baseline: {line}")
+        check(all(n > 0 for n in line["kernel_launches"].values()),
+              f"bench: a kernel was launched no time in its workers: {line}")
+    log(f"[bench] {BENCH_ENV}: {time.perf_counter() - t0:.1f} s")
+
 
 def main() -> int:
     from fem_tpu_torch.pipeline.engine import EngineConfig
@@ -971,6 +1155,7 @@ def main() -> int:
     phase_build()
     with tempfile.TemporaryDirectory() as workdir:
         ref, index, paths = phase_setup(workdir, "benign", benign_genome(), read_seed=9)
+        benign_paths = paths
         rows = phase_kernels(ref, index, dev)
         is_tail = lambda attr, a, shape: attr == "filter_tail" and (a[0].shape[2], a[2]) == shape
         is_verify = lambda attr, a, row: (  # a row's own test of (slots, lanes)
@@ -1003,6 +1188,10 @@ def main() -> int:
                      "banded_myers_tier2":
                          lambda attr, a: is_verify(attr, a, "banded_myers_tier2")})
         phase_replay(rows, captured, "adversarial_inputs")
+        del ref, index, captured
+        torch.cuda.empty_cache()
+        cli_shapes = phase_cli(workdir, benign_paths)
+    phase_bench()
     check(adversarial["retried"] > 0, "adversarial: no read was retried")
     check(any(cap + cc > 512 for cap, cc in adversarial["tail_shapes"]),
           "adversarial: filter_tail never launched above cap_cand + cap_occ = 512")
@@ -1020,6 +1209,7 @@ def main() -> int:
             by_shape = run["tail_shapes" if kernel == "filter_tail" else "myers_shapes"]
             row[f"launches_{point}"] = sum(n for s, n in by_shape.items() if at_shape(s))
         row["launches"] = row[f"launches_{path}"]
+        row["launches_cli"] = sum(n for s, n in cli_shapes[kernel].items() if at_shape(s))
         check(row["launches"] > 0, f"{row['name']} was launched no time on the main path")
         row["bound_us"] = row["bound_ms"] * 1e3
     log(f"[done] card: {smi}")

@@ -3,10 +3,10 @@
 csrc/*.cu compile with nvcc into one shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds), loaded with
 ctypes. Each source compiles to its own object, all at once, and one link
-joins them. Each C entry point takes its CUDA stream and returns
-cudaGetLastError() right after the launch. The library lives in
-build/fem_tpu_torch/ at the repository root and is rebuilt when any
-source is newer. A compile error raises with nvcc's stderr; nothing is
+joins them, under the build lock across processes. Each C entry point
+takes its CUDA stream and returns cudaGetLastError() right after the
+launch. The library lives in build/fem_tpu_torch/ at the repository root
+and is rebuilt when any source is newer. A compile error raises with nvcc's stderr; nothing is
 taken from outside the checkout. `build_log` keeps what ptxas said of
 each kernel's registers, shared memory and spills (-Xptxas -v).
 
@@ -28,7 +28,7 @@ import shutil
 import threading
 from concurrent.futures import ThreadPoolExecutor
 
-from fem_tpu_torch._build import BUILD_DIR, compile_to, stale
+from fem_tpu_torch._build import BUILD_DIR, build_if_stale, compile_to
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 LIB_PATH = os.path.join(BUILD_DIR, "libfem_tpu_torch_kernels.so")
@@ -82,11 +82,13 @@ def nvcc_path() -> str:
 
 
 def build(force: bool = False) -> str:
-    """Compile csrc/*.cu for sm_90a if the library is missing or stale."""
-    global build_log
+    """Compile csrc/*.cu for sm_90a if the library is missing or stale,
+    under the build lock across processes (`_build.build_if_stale`)."""
     srcs = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
     hdrs = sorted(glob.glob(os.path.join(CSRC, "*.h")))
-    if force or stale(LIB_PATH, srcs + hdrs):
+
+    def compile_all():
+        global build_log
         nvcc = nvcc_path()
         objs = [os.path.join(BUILD_DIR, os.path.basename(s)[:-3] + ".o") for s in srcs]
         with ThreadPoolExecutor(len(srcs)) as pool:
@@ -96,6 +98,8 @@ def build(force: bool = False) -> str:
             ))
         compile_to([nvcc, "-shared", *objs], LIB_PATH)
         build_log = "".join(logs)
+
+    build_if_stale(LIB_PATH, srcs + hdrs, compile_all, force)
     return LIB_PATH
 
 

@@ -5,7 +5,8 @@ root: the shared library `libfem_tpu_torch_native.so` (SAM emitter, exact
 CPU mapper, FASTQ reader; a C API consumed via ctypes) and the standalone
 `fem_baseline` mapper binary. Nothing is written next to the sources, so
 this package's builds never collide with fem_tpu's. A target is rebuilt
-when a source is newer; a compile error raises with the compiler's stderr.
+when a source is newer, under the build lock across processes
+(`_build.build_if_stale`); a compile error raises with the compiler's stderr.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ from __future__ import annotations
 import os
 import threading
 
-from fem_tpu_torch._build import BUILD_DIR, compile_to, stale
+from fem_tpu_torch._build import BUILD_DIR, build_if_stale, compile_to
 
 SRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
 LIB_PATH = os.path.join(BUILD_DIR, "libfem_tpu_torch_native.so")
@@ -33,11 +34,10 @@ def build_native(force: bool = False) -> str:
     """Build the shared library consumed via ctypes; returns its path."""
     with _lock:
         srcs = [s for s in _listed(".cpp") if os.path.basename(s) not in _MAINS]
-        if force or stale(LIB_PATH, srcs + _listed(".h")):
-            compile_to(
-                ["g++", *_CXXFLAGS, "-pthread", "-shared", "-fPIC", *srcs, "-lz"],
-                LIB_PATH,
-            )
+        build_if_stale(LIB_PATH, srcs + _listed(".h"), lambda: compile_to(
+            ["g++", *_CXXFLAGS, "-pthread", "-shared", "-fPIC", *srcs, "-lz"],
+            LIB_PATH,
+        ), force)
         return LIB_PATH
 
 
@@ -45,8 +45,8 @@ def build_baseline(force: bool = False) -> str:
     """Build the standalone fem_baseline CPU mapper binary; returns its path."""
     with _lock:
         src = os.path.join(SRC_DIR, "baseline.cpp")
-        if force or stale(BASELINE_PATH, [src] + _listed(".h")):
-            compile_to(["g++", *_CXXFLAGS, "-pthread", src, "-lz"], BASELINE_PATH)
+        build_if_stale(BASELINE_PATH, [src] + _listed(".h"), lambda: compile_to(
+            ["g++", *_CXXFLAGS, "-pthread", src, "-lz"], BASELINE_PATH), force)
         return BASELINE_PATH
 
 

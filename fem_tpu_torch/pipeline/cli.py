@@ -1,0 +1,467 @@
+"""Command-line interface: the port of fem_tpu/pipeline/cli.py.
+
+Mirrors the reference binary's surface (src/FEM.c:23-51):
+    fem index <window_size> <step_size> <reference> <output>   (src/FEM_index.c:7-22)
+    fem map -e INT -t INT -a INT -f g --ref R --index I --read1 Q -o OUT
+                                                               (src/FEM_map.c:10-133)
+plus the same exit summary (version/CMD/wall+CPU time) and the five
+MappingStats counters (src/FEM_map.c:214-219), word for word as the JAX
+package's CLI prints them.
+
+    python -m fem_tpu_torch index 12 3 ref.fa ref.index
+    python -m fem_tpu_torch map -e 2 --ref ref.fa --index ref.index \\
+        --read1 reads.fq -o out.sam [--device cpu]
+
+The device engine runs on the card (`--device cuda`, the default) and
+raises when CUDA is absent; `--device cpu` runs the plain torch versions.
+`-t N` fans the device engine out into N worker processes on the same
+device. Behavioral improvement over the reference, preserved
+intentionally: the reference *ignores* the k/step stored in the index
+header and filters with its hardcoded defaults (SURVEY.md §5.6); we take
+k/step from the index file, which is the only correct interpretation.
+
+Not ported: --cap-vote (the XLA slab path), --no-warm-shadow (shadow-warm),
+and --coordinator, --local-devices, --index-shards (multi-GPU and the
+coordinate-sharded index, later slices); argparse rejects them.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import resource
+import sys
+import time
+
+_COUNTER_KEYS = (
+    "num_reads", "num_mapped_reads",
+    "num_candidates_without_additional_qgram_filter",
+    "num_candidates", "num_mappings",
+)
+
+
+def _cpu_time() -> float:
+    r = resource.getrusage(resource.RUSAGE_SELF)
+    return r.ru_utime + r.ru_stime
+
+
+def _read_checkpoint(path: str) -> list[tuple[int, int]]:
+    """Parse a checkpoint file into [(reads, bytes)] history (oldest
+    first). Legacy format (a single read count, no byte offset) yields
+    [(reads, -1)] — resume then appends without truncating."""
+    hist: list[tuple[int, int]] = []
+    with open(path) as f:
+        for line in f:
+            parts = line.split()
+            if not parts:
+                continue
+            hist.append(
+                (int(parts[0]), int(parts[1]) if len(parts) > 1 else -1)
+            )
+    return hist
+
+
+def _write_checkpoint(path: str, hist: list[tuple[int, int]]) -> None:
+    """Atomically persist the (reads, bytes) history (last 256 entries, the
+    checkpoint file format of the JAX CLI)."""
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        for reads, nbytes in hist[-256:]:
+            f.write(f"{reads} {nbytes}\n")
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)
+
+
+def _print_counters(values) -> None:
+    """The five oracle counters (src/FEM_map.c:214-219)."""
+    reads, mapped, before_filter, candidates, mappings = values
+    print(f"The number of read: {reads}", file=sys.stderr)
+    print(f"The number of mapped read: {mapped}", file=sys.stderr)
+    print(
+        "The number of candidate before additional q-gram filter: "
+        f"{before_filter}",
+        file=sys.stderr,
+    )
+    print(f"The number of candidate: {candidates}", file=sys.stderr)
+    print(f"The number of mapping: {mappings}", file=sys.stderr)
+
+
+def index_main(argv: list[str]) -> int:
+    if len(argv) < 4:
+        print(
+            "Usage: fem index <window_size> <step_size> <reference> <output>",
+            file=sys.stderr,
+        )
+        return 1
+    kmer_size, step_size = int(argv[0]), int(argv[1])
+    reference_path, output_path = argv[2], argv[3]
+    print(
+        f"k: {kmer_size}, step size: {step_size}, reference: {reference_path}, "
+        f"output: {output_path}",
+        file=sys.stderr,
+    )
+    from fem_tpu_torch.index.build import build_index
+    from fem_tpu_torch.index.storage import save_index
+    from fem_tpu_torch.io.fastx import read_fasta
+
+    t0 = time.time()
+    reference = read_fasta(reference_path)
+    index = build_index(reference, kmer_size, step_size)
+    print(
+        f"Collected {index.num_occurrences} seeds.\n"
+        f"Lookup table size: {index.lookup.shape[0]}, occurrence table size: "
+        f"{index.num_occurrences}.\nBuilt index in {time.time() - t0:f}s.",
+        file=sys.stderr,
+    )
+    save_index(index, output_path)
+    return 0
+
+
+def _map_parent_workers(args, argv: list[str]) -> int:
+    """Fan `fem map -t N` out to N single-threaded worker processes over
+    interleaved batch shards, then merge their SAM shards and counters.
+    The workers get this process's arguments, `--device` included; a
+    worker that fails makes this process print its stderr and exit with
+    its code."""
+    import json
+    import subprocess
+    import tempfile
+
+    import fem_tpu_torch
+    from fem_tpu_torch.parallel.multihost import HostContext, shard_path
+
+    t = args.t
+    env = dict(os.environ)
+    env["PYTHONPATH"] = (
+        os.path.dirname(os.path.dirname(os.path.abspath(fem_tpu_torch.__file__)))
+        + os.pathsep
+        + env.get("PYTHONPATH", "")
+    )
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = []
+        for w in range(t):
+            wargv = list(argv)
+            # Rewrite -t and inject the worker-shard arguments.
+            if "-t" in wargv:
+                wargv[wargv.index("-t") + 1] = "1"
+            else:
+                wargv += ["-t", "1"]
+            wargv += [
+                "--num-hosts", str(t), "--host-id", str(w),
+                "--stats-json", os.path.join(tmp, f"stats{w}.json"),
+            ]
+            procs.append(
+                subprocess.Popen(
+                    [sys.executable, "-m", "fem_tpu_torch", "map", *wargv],
+                    stderr=subprocess.PIPE, text=True, env=env,
+                )
+            )
+        rc = 0
+        for p in procs:
+            _, err = p.communicate()
+            if p.returncode != 0:
+                print(err, file=sys.stderr)
+                rc = p.returncode
+        if rc:
+            return rc
+
+        # Merge SAM shards: header from shard 0, records from all shards
+        # (inter-read order across workers is unordered, exactly like the
+        # reference with t > 1 — record-set equality is the contract).
+        with open(args.output, "wb") as out:
+            for w in range(t):
+                sp = shard_path(args.output, HostContext(t, w))
+                with open(sp, "rb") as f:
+                    for line in f:
+                        if w == 0 or not line.startswith(b"@"):
+                            out.write(line)
+                os.unlink(sp)
+
+        totals = [0] * 5
+        for w in range(t):
+            # Workers shard their --stats-json path like any multi-host run.
+            sp = shard_path(os.path.join(tmp, f"stats{w}.json"), HostContext(t, w))
+            with open(sp) as f:
+                st = json.load(f)["mapping_stats"]
+            for i, k in enumerate(_COUNTER_KEYS):
+                totals[i] += st[k]
+        if args.stats_json:
+            with open(args.stats_json, "w") as f:
+                json.dump({"mapping_stats": dict(zip(_COUNTER_KEYS, totals))}, f, indent=2)
+                f.write("\n")
+    _print_counters(totals)
+    return 0
+
+
+def map_main(argv: list[str]) -> int:
+    p = argparse.ArgumentParser(prog="fem map", add_help=True)
+    p.add_argument("-e", type=int, default=2, help="error threshold")
+    p.add_argument("-t", type=int, default=1, help="number of worker processes")
+    p.add_argument("-a", type=int, default=1, help="# additional q-grams")
+    p.add_argument("-f", default="g", help='seeding algorithm ("g" group seeding)')
+    p.add_argument("--ref", required=True, help="input reference file")
+    p.add_argument("--index", required=True, help="input index file")
+    p.add_argument("--read1", required=True, help="input read1 file")
+    p.add_argument("-o", dest="output", required=True, help="output SAM file")
+    p.add_argument("--batch-size", type=int, default=10000)
+    p.add_argument("--cap-occ", type=int, default=None,
+                   help="tier-0 occurrence-slab capacity (engine tuning)")
+    p.add_argument("--cap-cand", type=int, default=None,
+                   help="tier-0 candidate capacity (engine tuning)")
+    p.add_argument("--verify-per-read", type=float, default=None,
+                   help="tier-0 verify slots per read-strand (engine tuning)")
+    p.add_argument("--accept-per-read", type=float, default=None,
+                   help="tier-0 accepted-hit slots per read (engine tuning)")
+    p.add_argument(
+        "--engine",
+        choices=["device", "golden"],
+        default="device",
+        help="device = GPU pipeline, golden = scalar oracle",
+    )
+    p.add_argument("--device", default="cuda",
+                   help="torch device of the device engine (default cuda; "
+                        "cpu runs the kernels' plain versions)")
+    p.add_argument("--profile", default=None,
+                   help="write a torch.profiler trace to this directory")
+    p.add_argument("--stats-json", default=None,
+                   help="write pipeline metrics + counters as JSON")
+    p.add_argument("--checkpoint", default=None,
+                   help="progress file enabling resume after interruption")
+    p.add_argument("--verbose-batches", action="store_true",
+                   help="log per-batch mapping time (reference map.c:57)")
+    p.add_argument("--num-hosts", type=int, default=1,
+                   help="worker run: total number of worker processes")
+    p.add_argument("--host-id", type=int, default=0,
+                   help="worker run: this process's id in [0, num-hosts)")
+    args = p.parse_args(argv)
+
+    # Constraint surface of check_args (src/FEM_map.c:29-55).
+    if not (0 <= args.e <= 7):
+        print("Wrong error threshold.", file=sys.stderr)
+        return 1
+    if args.t <= 0:
+        print("Wrong number of threads.", file=sys.stderr)
+        return 1
+    if not (0 <= args.a <= 2):
+        print("Wrong number of additional q-grams.", file=sys.stderr)
+        return 1
+    if args.f not in ("g", "v"):
+        # The reference accepts both flags but only ever wires group
+        # seeding (src/FEM_map.c:109-117 leaves the 'v' branch empty).
+        print("Wrong name of seeding algorithm!", file=sys.stderr)
+        return 1
+
+    if args.t > 1 and args.engine == "device" and args.num_hosts == 1:
+        # The reference's -t spawns t pthread mapping workers over disjoint
+        # batches (src/FEM_map.c:182-189). Here each worker is a PROCESS
+        # with its own engine on the same device: one process's rate is
+        # set by its host enqueue under the interpreter lock, which a
+        # second process does not share. Workers write SAM shards and stats
+        # files; the parent merges both.
+        return _map_parent_workers(args, argv)
+
+    from fem_tpu_torch.config import FemArgs
+    from fem_tpu_torch.golden.model import GoldenMapper, MappingStats
+    from fem_tpu_torch.index.storage import load_index
+    from fem_tpu_torch.io.fastx import read_fasta, stream_fastq_batches
+    from fem_tpu_torch.io.sam import SamWriter
+    from fem_tpu_torch.parallel import multihost
+    from fem_tpu_torch.utils.metrics import PipelineMetrics, Timer
+
+    # Each worker process maps a disjoint interleaved batch subset and
+    # writes its own SAM shard; the parent merges them.
+    ctx = multihost.initialize(args.num_hosts, args.host_id)
+
+    reference = read_fasta(args.ref)
+    index = load_index(args.index)
+    fem_args = FemArgs(
+        kmer_size=index.kmer_size,
+        step_size=index.step_size,
+        error_threshold=args.e,
+        num_additional_qgrams=args.a,
+        num_threads=args.t,
+    )
+    total = MappingStats()
+    t0 = time.time()
+
+    # Resume: the checkpoint stores (reads, output-bytes) pairs taken when
+    # the output prefix was exactly the records of that read prefix
+    # (map_stream runs `ordered` under --checkpoint). Resume truncates the
+    # SAM shard to the stored byte offset, so a crash between checkpoints
+    # neither loses nor duplicates records.
+    skip_reads = 0
+    resume_bytes = -1
+    ckpt_path = multihost.shard_path(args.checkpoint, ctx) if args.checkpoint else None
+    ckpt_hist: list[tuple[int, int]] = []
+    if ckpt_path and os.path.exists(ckpt_path):
+        ckpt_hist = _read_checkpoint(ckpt_path)
+        if ckpt_hist:
+            skip_reads, resume_bytes = ckpt_hist[-1]
+    out_path = multihost.shard_path(args.output, ctx)
+    if skip_reads and not os.path.exists(out_path):
+        print(f"Checkpoint present but {out_path} is missing; "
+              f"restarting from 0.", file=sys.stderr)
+        skip_reads, resume_bytes, ckpt_hist = 0, -1, []
+    if skip_reads:
+        print(f"Resuming after {skip_reads} reads.", file=sys.stderr)
+
+    def batches():
+        skipped = 0
+        stream = multihost.shard_batches(
+            stream_fastq_batches(args.read1, batch_size=args.batch_size), ctx)
+        for batch in stream:
+            if skipped + batch.num_reads <= skip_reads:
+                skipped += batch.num_reads
+                continue
+            yield batch
+
+    if skip_reads:
+        writer_file = open(out_path, "r+b")
+        if resume_bytes >= 0:
+            # Drop any records written after the checkpointed prefix (the
+            # crash window) — resume re-maps those reads.
+            writer_file.truncate(resume_bytes)
+        writer_file.seek(0, os.SEEK_END)
+        writer = None
+    else:
+        writer = SamWriter(out_path, reference.names, reference.lengths.tolist())
+        writer_file = None
+
+    def write_chunks(recs):
+        if writer is not None:
+            for r in recs:
+                writer.write_record(r)
+        else:
+            for r in recs:
+                writer_file.write(r)
+
+    def out_flush_tell() -> int:
+        if writer is not None:
+            return writer.tell()
+        writer_file.flush()
+        return writer_file.tell()
+
+    metrics = PipelineMetrics()
+    prof = None
+    if args.profile:
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU]
+        if args.engine == "device" and torch.device(args.device).type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        prof = profile(activities=acts)
+        prof.start()
+    engine = None
+    try:
+        if args.engine == "golden":
+            mapper = GoldenMapper(fem_args, reference, index)
+            for batch in batches():
+                bt = Timer()
+                recs, stats = mapper.map_reads(batch.names, batch.seqs, batch.quals)
+                write_chunks(recs)
+                total += stats
+                metrics.batch(batch.num_reads, len(recs), 0.0, bt.elapsed())
+                if args.verbose_batches:
+                    print(f"Mapped read batch in {bt.elapsed():f}s.", file=sys.stderr)
+        else:
+            from fem_tpu_torch.pipeline.engine import EngineConfig, MappingEngine
+            from fem_tpu_torch.pipeline.prefetch import ThreadedBatchSource
+
+            tune = {
+                k: v
+                for k, v in (
+                    ("cap_occ", args.cap_occ),
+                    ("cap_cand", args.cap_cand),
+                    ("verify_per_read", args.verify_per_read),
+                    ("accept_per_read", args.accept_per_read),
+                )
+                if v is not None
+            }
+            engine = MappingEngine(
+                fem_args, reference, index,
+                EngineConfig(batch_size=args.batch_size, **tune),
+                device=args.device,
+            )
+            source = ThreadedBatchSource(batches())
+            bt = Timer()
+            # Checkpointing needs read-order output (see map_stream); the
+            # flushed byte offset then pairs with the stream position.
+            for recs, stats in engine.map_stream(source, ordered=ckpt_path is not None):
+                write_chunks(recs)
+                total += stats
+                dt = bt.reset()
+                metrics.batch(stats.num_reads, len(recs), 0.0, dt)
+                if args.verbose_batches:
+                    print(f"Mapped read batch in {dt:f}s.", file=sys.stderr)
+                if ckpt_path:
+                    # engine.consumed_reads = stream position through the
+                    # item just written; in ordered mode the flushed file
+                    # prefix is exactly this process's records for reads
+                    # [0, position).
+                    pos = skip_reads + engine.consumed_reads
+                    ckpt_hist.append((pos, out_flush_tell()))
+                    del ckpt_hist[:-256]
+                    _write_checkpoint(ckpt_path, ckpt_hist)
+    finally:
+        if prof is not None:
+            prof.stop()
+            os.makedirs(args.profile, exist_ok=True)
+            prof.export_chrome_trace(
+                multihost.shard_path(os.path.join(args.profile, "trace.json"), ctx))
+        if writer is not None:
+            writer.close()
+        else:
+            writer_file.close()
+    metrics.wall_total_s = time.time() - t0
+    if engine is not None:
+        metrics.fallback_reads = engine.fallback_reads
+        metrics.retried_reads = engine.retried_reads
+
+    if args.stats_json:
+        metrics.dump_json(multihost.shard_path(args.stats_json, ctx), total)
+    if ctx.host_id != 0:
+        print(f"[host {ctx.host_id}] wrote {out_path}", file=sys.stderr)
+        return 0
+
+    _print_counters([getattr(total, k) for k in _COUNTER_KEYS])
+    print(f"Time: {time.time() - t0:f}s", file=sys.stderr)
+    return 0
+
+
+def main(argv: list[str] | None = None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if not argv:
+        print(
+            "Program: fem_tpu_torch (GPU-native Fast and Efficient short read Mapper)\n"
+            "Usage:   fem <command> [options]\n\n"
+            "Command: index   build index for reference\n"
+            "         map     map reads",
+            file=sys.stderr,
+        )
+        return 1
+    real0, cpu0 = time.time(), _cpu_time()
+    cmd, rest = argv[0], argv[1:]
+    if cmd == "index":
+        rc = index_main(rest)
+    elif cmd == "map":
+        rc = map_main(rest)
+    else:
+        print(f"[main] unrecognized command '{cmd}'", file=sys.stderr)
+        return 1
+    if rc == 0:
+        from fem_tpu_torch import __version__
+
+        print(f"[main] Version: {__version__}", file=sys.stderr)
+        print(f"[main] CMD: fem {' '.join(argv)}", file=sys.stderr)
+        print(
+            f"[main] Real time: {time.time() - real0:.3f} sec; "
+            f"CPU: {_cpu_time() - cpu0:.3f} sec",
+            file=sys.stderr,
+        )
+    return rc
+
+
+if __name__ == "__main__":
+    sys.exit(main())

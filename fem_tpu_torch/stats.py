@@ -1,5 +1,5 @@
-"""The mapping counters (fem_tpu/golden/model.py: MappingStats). The golden
-oracle itself stays in fem_tpu and serves the tests only."""
+"""The mapping counters (fem_tpu/golden/model.py: MappingStats), shared by
+the engine, the port's golden oracle (golden/model.py) and the CLI."""
 
 from __future__ import annotations
 
