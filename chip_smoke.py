@@ -89,6 +89,26 @@ exits non-zero without its result line:
               defaults are 327,680 and 163,840): both JSON lines must be
               equal to fem_baseline for every swept worker count (2 and 1),
               and its workers must have launched both kernels.
+  9. parallel the grids of fem_tpu_torch/parallel/, every cell on cuda:0
+              (a grid may name one card more than once; a machine with more
+              cards says so and still names cuda:0 only). On the benign
+              point through the pipelined stream with the default ladder: a
+              data grid of 2, then coordinate-sharded (data, index) grids
+              (1, 4) and (2, 2); the adversarial point on (1, 2), its
+              retries through the sharded ladder (retried reads, tier
+              dispatches, and the host-mapped reads beyond phase 5's, which
+              are the halo-risk reads, printed); the CLI in this process
+              with --index-shards 2; two `python -m fem_tpu_torch map`
+              processes on cuda:0 joined by torch.distributed
+              (--coordinator on a free local port), once independent and
+              once as one (2, 2) grid with --index-shards 2 (gloo: NCCL
+              refuses two ranks on one GPU; the [dist] lines must say so).
+              Every run: records and counters == fem_baseline, both kernels
+              launched. Kernel rows at the per-shard shapes: the filter
+              tail over 32,768 lanes (a (1, n_ip) row) and 16,384 (n_dp =
+              2), banded Myers at 16,384 slots over 32,768 lanes, on
+              synthetic inputs and replayed on a (1, 4) shard's own (for
+              Myers, a shard whose reference slice has negative offsets).
 
 Each kernel's bound is the least time the card could take for the same
 inputs: the bytes it must move (inputs once, outputs once) over 3.35 TB/s,
@@ -153,6 +173,12 @@ ROW_LAUNCHES = {
     "filter_tail_tier2": ("filter_tail", lambda s: s == TIER2[1:], "adversarial"),
     "banded_myers_tier2": ("banded_myers", lambda s: s[0] == TIER2_VERIFY_SLOTS
                            and s[1] <= 2 * TIER2[0], "adversarial"),
+    # Phase 9's cells: a (1, 4) grid's cells map 16,384 reads each against
+    # a quarter of the index, with a quarter of the verify slots; a (2, 2)
+    # grid's, 8,192 reads.
+    "filter_tail_shard": ("filter_tail", lambda s: s == (80, 16), "grid_1x4"),
+    "filter_tail_shard_dp2": ("filter_tail", lambda s: s == (80, 16), "grid_2x2"),
+    "banded_myers_shard": ("banded_myers", lambda s: s == (BATCH, 2 * BATCH), "grid_1x4"),
 }
 
 
@@ -374,7 +400,8 @@ def _myers_inputs(ref, e: int, rng, dev, NB: int = 2 * BATCH, V: int | None = No
     read is the diagonal of slot 2l's reference window with up to e+1
     substitutions (the mutated copies of tests/test_verify_pallas.py), so
     part of the slots are accepted; slot 2l+1 points elsewhere, a few of
-    them into the trailing gap."""
+    them into the trailing gap. With fewer than 2 slots a lane, the lanes
+    no slot names hold windows from elsewhere."""
     Lmax = 128
     V = 2 * NB if V is None else V
     L0 = int(ref.lengths[0])
@@ -384,7 +411,10 @@ def _myers_inputs(ref, e: int, rng, dev, NB: int = 2 * BATCH, V: int | None = No
     v_pos[1:64:2] = rng.integers(L0 - Lmax, L0 + 40, 32)
     lens = np.full(NB, 100, np.int32)
     lens[NB // 2 :] = rng.integers(40, Lmax + 1, NB - NB // 2)
-    off = int(ref.offsets[0]) + v_pos[0 : 2 * NB : 2].astype(np.int64) + e
+    starts = v_pos[0 : 2 * NB : 2]
+    if starts.shape[0] < NB:  # fewer slots than 2 a lane: the other reads are random windows
+        starts = np.concatenate([starts, rng.integers(0, L0 - Lmax - 2 * e, NB - starts.shape[0])])
+    off = int(ref.offsets[0]) + starts.astype(np.int64) + e
     both = ref.flat_codes[off[:, None] + np.arange(Lmax)[None, :]]
     n_edits = rng.integers(0, e + 2, NB)
     for j in range(e + 1):
@@ -818,20 +848,24 @@ def _log_run(tag: str, what: str, run: dict) -> None:
         f"host-mapped {run['fallback']} ({run['fallback'] / n:.2%})")
 
 
+_BASELINE: dict = {}  # reads file -> fem_baseline's (digest, counters)
+
+
 def baseline_check(tag: str, paths: dict, run: dict) -> None:
     """The oracle: fem_baseline (byte-identical to the reference binary) on
     the same reads; record multiset and counters must be equal."""
     from fem_tpu_torch.native.build import build_baseline
 
     t0 = time.perf_counter()
-    sam = os.path.join(os.path.dirname(paths["fq"]), "baseline.sam")
-    p = subprocess.run(
-        [build_baseline(), "map", "-e", str(E), "-a", str(A), "-t", "1",
-         "--ref", paths["fa"], "--index", paths["ix"], "--read1", paths["fq"],
-         "-o", sam], check=True, capture_output=True, text=True)
-    with open(sam, "rb") as f:
-        want_dig, want_cnt = digest_lines([f.read()])
-    want_counters = counters_from_stderr(p.stderr)
+    if paths["fq"] not in _BASELINE:  # fem_baseline once a point
+        sam = os.path.join(os.path.dirname(paths["fq"]), "baseline.sam")
+        p = subprocess.run(
+            [build_baseline(), "map", "-e", str(E), "-a", str(A), "-t", "1",
+             "--ref", paths["fa"], "--index", paths["ix"], "--read1", paths["fq"],
+             "-o", sam], check=True, capture_output=True, text=True)
+        with open(sam, "rb") as f:
+            _BASELINE[paths["fq"]] = (digest_lines([f.read()]), counters_from_stderr(p.stderr))
+    (want_dig, want_cnt), want_counters = _BASELINE[paths["fq"]]
     got_dig, got_cnt = run["digest"]
     total = run["stats"]
     got_counters = [total.num_reads, total.num_mapped_reads,
@@ -1147,6 +1181,216 @@ def phase_bench() -> None:
     log(f"[bench] {BENCH_ENV}: {time.perf_counter() - t0:.1f} s")
 
 
+def _grid_run(tag: str, engine, batches, paths: dict, capture: dict | None = None) -> dict:
+    """The counted run of one grid engine through the pipelined stream
+    (== fem_baseline, both kernels launched), then a steady run; with
+    `capture`, one more run that keeps those kernel inputs (run["captured"])."""
+    probe = Probe(engine)
+    run = run_engine(engine, probe, batches, "stream")
+    _log_run(tag, "pipelined stream, counted run", run)
+    log(f"[parallel] {tag}: kernel launches {run['launches']}; filter_tail by (cap_occ, "
+        f"cap_cand) {run['tail_shapes']}; banded_myers by (slots, lanes) {run['myers_shapes']}")
+    check(all(n > 0 for n in run["launches"].values()), f"{tag}: a kernel was never launched")
+    baseline_check(tag, paths, run)
+    again = run_engine(engine, probe, batches, "stream")
+    check(again["digest"] == run["digest"] and again["stats"] == run["stats"],
+          f"{tag}: the steady run gave other records")
+    _log_run(tag, "pipelined stream, steady", again)
+    run["steady_stream"] = [again["reads_per_s"]]
+    if capture:
+        probe.capture = capture
+        again = run_engine(engine, probe, batches, "stream")
+        check(again["digest"] == run["digest"] and set(probe.captured) == set(capture),
+              f"{tag}: the capture run gave other records or missed {sorted(capture)}")
+        run["captured"] = dict(probe.captured)
+    probe.close()
+    return run
+
+
+def _two_processes(tag: str, base: list, out: str, extra: list) -> tuple[tuple, list, float]:
+    """`python -m fem_tpu_torch map` as ranks 0 and 1 of one process group
+    on cuda:0: the merged shards' digest, rank 0's counters, the wall."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "fem_tpu_torch", *base, "-o", out, "--num-hosts", "2",
+         "--host-id", str(h), "--coordinator", f"127.0.0.1:{port}", *extra],
+        env=_child_env(), stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+        for h in range(2)]
+    errs = []
+    try:
+        for p in procs:
+            errs.append(p.communicate(timeout=600)[1])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for h, (p, err) in enumerate(zip(procs, errs)):
+        check(p.returncode == 0, f"{tag}: rank {h} failed (rc {p.returncode}): {err[-3000:]}")
+        dist_line = [x for x in err.splitlines() if x.startswith("[dist]")]
+        check(len(dist_line) == 1 and "backend gloo" in dist_line[0],
+              f"{tag}: rank {h} did not choose gloo on a shared card: {dist_line}")
+        log(f"[parallel] {tag} rank {h}: {dist_line[0]}")
+        for line in err.splitlines():
+            if line.startswith("[mesh]"):
+                log(f"[parallel] {tag} rank {h}: {line}")
+    chunks = []
+    for h in range(2):
+        with open(f"{out}.host{h:04d}", "rb") as f:
+            chunks.append(f.read())
+        log(f"[parallel] {tag} rank {h} wrote {digest_lines(chunks[-1:])[1]} records")
+    return digest_lines(chunks), counters_from_stderr(errs[0]), wall
+
+
+def phase_parallel(workdir: str, benign_paths: dict, adv_paths: dict,
+                   adv_fallback_one_device: int, dev: str) -> tuple[list, dict]:
+    """Phase 9 (see the module docstring): every grid names `dev` only.
+    Returns the per-shard kernel rows and the counted grid runs by tag."""
+    from fem_tpu_torch import kernels
+    from fem_tpu_torch.config import FemArgs
+    from fem_tpu_torch.index.storage import load_index
+    from fem_tpu_torch.io import fastx
+    from fem_tpu_torch.parallel.mesh import make_index_mesh, make_mesh
+    from fem_tpu_torch.pipeline.engine import EngineConfig, MappingEngine
+    from fem_tpu_torch.stats import MappingStats
+
+    t_phase = time.perf_counter()
+    cards = torch.cuda.device_count()
+    if cards > 1:
+        log(f"[parallel] {cards} cards on this machine: the grids below still name {dev} "
+            f"only, so every cell shares it")
+    else:
+        log(f"[parallel] one card: every cell of every grid below shares {dev}")
+    args = FemArgs(kmer_size=KMER, step_size=STEP, error_threshold=E, num_additional_qgrams=A)
+    benign_cfg = dict(batch_size=BATCH, cap_occ=80, cap_cand=16, verify_per_read=2,
+                      accept_per_read=0.85)
+    ref = fastx.read_fasta(benign_paths["fa"])
+    index = load_index(benign_paths["ix"])
+    batches = list(fastx.stream_fastq_batches(benign_paths["fq"], batch_size=BATCH))
+    runs = {}
+    shard_capture = {
+        "filter_tail_shard": lambda attr, a: attr == "filter_tail"
+        and (a[0].shape[2], a[2]) == (80, 16),
+        # A shard whose reference slice starts mid-chromosome: its offsets
+        # (pos - lo) are negative.
+        "banded_myers_shard": lambda attr, a: attr == "verify_candidates"
+        and a[0].own_start is not None and (a[1].shape[0], a[4].shape[0]) == (BATCH, 2 * BATCH)
+        and int(a[0].ref_offsets.min()) < 0,
+    }
+    for tag, key, grid in (("grid_dp2", "mesh", make_mesh([dev] * 2)),
+                           ("grid_1x4", "index_mesh", make_index_mesh([dev] * 4, 4)),
+                           ("grid_2x2", "index_mesh", make_index_mesh([dev] * 4, 2))):
+        t0 = time.perf_counter()
+        engine = MappingEngine(args, ref, index, EngineConfig(**benign_cfg, **{key: grid}))
+        check([(t.batch_size, t.cap_occ, t.cap_cand) for t in engine.tiers] == [TIER1, TIER2],
+              f"{tag}: the default ladder differs from the single device's")
+        log(f"[parallel] {tag}: {key} {dict(grid.shape)}, engine set-up (shards built and "
+            f"placed) {time.perf_counter() - t0:.2f} s, device memory allocated "
+            f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+        runs[tag] = _grid_run(tag, engine, batches, benign_paths,
+                              shard_capture if tag == "grid_1x4" else None)
+        del engine
+        torch.cuda.empty_cache()
+
+    # Kernel rows at the per-shard shapes, on synthetic inputs.
+    from fem_tpu_torch.ops.filter_tail import filter_tail, filter_tail_plain
+    from fem_tpu_torch.ops.types import device_index_from_host
+    from fem_tpu_torch.ops.verify import verify_candidates, verify_candidates_plain
+
+    rng = np.random.default_rng(2026)
+    rows = []
+    tail = {"route": "cuda", "source": "fem_tpu_torch/csrc/filter_tail.cu",
+            "replaces": "fem_tpu/ops/filter_tail_pallas.py:213", "library_ms": None}
+    for name, NB in (("filter_tail_shard", 2 * BATCH), ("filter_tail_shard_dp2", BATCH)):
+        sid, diag = _clustered_slabs(rng, NB, STEP, 80, dev)
+        row = dict(tail, name=name)
+        row.update(compare_and_time(
+            "filter_tail", f"synthetic slabs over {NB} lanes",
+            lambda: filter_tail(sid, diag, 16, E, A),
+            lambda: filter_tail_plain(sid, diag, 16, E, A), 3))
+        bnd, note = tail_bound(sid, diag, 16)
+        row.update(bnd)
+        rows.append(row)
+        log(f"[parallel] {name} NB={NB} G={STEP} CAP=80 CC=16 e={E} a={A}: {note}")
+        _log_times(f"[parallel] {name}", "synthetic", row, row)
+    dindex = device_index_from_host(index, ref, dev)
+    args_v = _myers_inputs(ref, E, rng, dev, NB=2 * BATCH, V=BATCH)
+    row = {"name": "banded_myers_shard", "route": "cuda",
+           "source": "fem_tpu_torch/csrc/banded_myers.cu",
+           "replaces": "fem_tpu/ops/verify_pallas.py:122", "library_ms": None}
+    row.update(compare_and_time(
+        "banded_myers", "synthetic slots at a (1, 4) cell's shape",
+        lambda: verify_candidates(dindex, *args_v, E),
+        lambda: verify_candidates_plain(dindex, *args_v, E), 5))
+    bnd, note = myers_bound(*args_v, E, None)
+    row.update(bnd)
+    rows.append(row)
+    log(f"[parallel] banded_myers_shard V={BATCH} lanes={2 * BATCH}: {note}")
+    _log_times("[parallel] banded_myers_shard", f"at e={E}", row, row)
+    captured = runs["grid_1x4"].pop("captured")
+    offs = captured["banded_myers_shard"][0][0].ref_offsets
+    log(f"[parallel] replayed Myers shard: reference slice of {offs.shape[0]} chromosome(s), "
+        f"offsets {offs.tolist()}")
+    phase_replay(rows, captured, "shard_inputs")
+    del dindex, args_v, captured, ref, index, batches
+    torch.cuda.empty_cache()
+
+    # The adversarial point on (1, 2): its retries through the sharded ladder.
+    ref = fastx.read_fasta(adv_paths["fa"])
+    index = load_index(adv_paths["ix"])
+    batches = list(fastx.stream_fastq_batches(adv_paths["fq"], batch_size=BATCH))
+    engine = MappingEngine(args, ref, index, EngineConfig(
+        batch_size=BATCH, cap_occ=80, cap_cand=64, verify_per_read=8, accept_per_read=8,
+        index_mesh=make_index_mesh([dev] * 2, 2)))
+    probe = Probe(engine)
+    run = run_engine(engine, probe, batches, "stream")
+    probe.close()
+    _log_run("adversarial_1x2", "pipelined stream, counted run", run)
+    baseline_check("adversarial_1x2", adv_paths, run)
+    log(f"[parallel] adversarial_1x2: retried_reads {run['retried']}, tier_dispatches "
+        f"{run['dispatches']}, host-mapped {run['fallback']} against {adv_fallback_one_device} "
+        f"on one device: {run['fallback'] - adv_fallback_one_device} reads host-mapped for "
+        f"halo risk; launches by shape {run['tail_shapes']} {run['myers_shapes']}")
+    check(run["retried"] > 0 and run["dispatches"] > 0,
+          "adversarial_1x2: no read went through the sharded ladder")
+    runs["adversarial_1x2"] = run
+    del engine, ref, index, batches
+    torch.cuda.empty_cache()
+
+    # The command line: in this process with --index-shards 2, then two
+    # processes on cuda:0, independent and as one grid.
+    d = os.path.join(workdir, "parallel")
+    os.makedirs(d)
+    base = ["map", "-e", str(E), "-a", str(A), "--ref", benign_paths["fa"], "--index",
+            benign_paths["ix"], "--read1", benign_paths["fq"], *CLI_TUNE]
+    sam = os.path.join(d, "shards2.sam")
+    kernels.reset_launches()
+    rc, err, wall = _run_cli(base + ["--index-shards", "2", "-o", sam])
+    launched = dict(kernels.launches)
+    check(rc == 0, f"cli --index-shards 2 failed: {err[-2000:]}")
+    mesh_line = [x for x in err.splitlines() if x.startswith("[mesh]")]
+    log(f"[parallel] cli map --index-shards 2 in this process: {wall:.2f} s wall = "
+        f"{NUM_READS / wall:,.1f} reads/s (reference and index load, shard build included); "
+        f"{mesh_line}; kernel launches {launched}")
+    check(all(n > 0 for n in launched.values()), "cli --index-shards 2: a kernel never launched")
+    baseline_check("cli_index_shards_2", benign_paths,
+                   {"digest": _sam_digest(sam), "stats": MappingStats(*counters_from_stderr(err))})
+    for tag, extra in (("two_processes_independent", []),
+                       ("two_processes_global_mesh", ["--index-shards", "2", "--local-devices", "2"])):
+        digest, counters, wall = _two_processes(tag, base, os.path.join(d, f"{tag}.sam"), extra)
+        log(f"[parallel] {tag}: {wall:.2f} s wall for both (process start, torch import, index "
+            f"load included) = {NUM_READS / wall:,.1f} reads/s")
+        baseline_check(tag, benign_paths, {"digest": digest, "stats": MappingStats(*counters)})
+    log(f"[parallel] phase 9: {time.perf_counter() - t_phase:.1f} s")
+    return rows, runs
+
+
 def main() -> int:
     from fem_tpu_torch.pipeline.engine import EngineConfig
 
@@ -1176,6 +1420,7 @@ def main() -> int:
 
         ref, index, paths = phase_setup(workdir, "adversarial", satellite_genome(),
                                         read_seed=14)
+        adv_paths = paths
         adversarial, captured = phase_main(
             "adversarial", ref, index, paths,
             EngineConfig(batch_size=BATCH, cap_occ=80, cap_cand=64,
@@ -1191,7 +1436,10 @@ def main() -> int:
         del ref, index, captured
         torch.cuda.empty_cache()
         cli_shapes = phase_cli(workdir, benign_paths)
-    phase_bench()
+        phase_bench()
+        grid_rows, grid_runs = phase_parallel(workdir, benign_paths, adv_paths,
+                                              adversarial["fallback"], dev)
+    rows += grid_rows
     check(adversarial["retried"] > 0, "adversarial: no read was retried")
     check(any(cap + cc > 512 for cap, cc in adversarial["tail_shapes"]),
           "adversarial: filter_tail never launched above cap_cand + cap_occ = 512")
@@ -1201,7 +1449,7 @@ def main() -> int:
     # each counted run; `launches` is the count on the row's own main path.
     # (The adversarial point's tier 0 has 262,144 verify slots too: tier 2's
     # launches are those over at most 2 * 64 lanes.)
-    runs = {"benign": benign, "adversarial": adversarial}
+    runs = {"benign": benign, "adversarial": adversarial, **grid_runs}
     check({r["name"] for r in rows} == set(ROW_LAUNCHES), "a row without a launch count")
     for row in rows:
         kernel, at_shape, path = ROW_LAUNCHES[row["name"]]

@@ -8,6 +8,12 @@ workarounds and are not carried over):
   * the reference as one flat uint8 code array with the 256-base sentinel
     gaps of fastx.read_fasta between and after the chromosomes, so a
     banded window near a boundary reads sentinels, never a neighbour.
+
+One shard of a coordinate-sharded index (parallel/sharded_index.py) has
+the same layout over its slice of the genome: its local CSR and
+occurrences, its reference slice (whose offsets, pos - lo, can be
+negative), and the GLOBAL frequency table and occurrence count, because the
+q-gram DP and the frequency sort are decisions over the whole genome.
 """
 
 from __future__ import annotations
@@ -36,27 +42,59 @@ class DeviceIndex:
     ref_flat: torch.Tensor  # (T,) uint8 codes with sentinel gaps
     ref_offsets: torch.Tensor  # (S,) int64 chromosome starts in ref_flat
     ref_lengths: torch.Tensor  # (S,) int32 chromosome lengths
-    num_occurrences: int
+    num_occurrences: int  # global: the DP's occurrence-table size
+    # A shard of a coordinate-sharded index (None on a whole index): its
+    # owned [own_start, own_end) per chromosome, and the start of its left
+    # halo per chromosome, or 2^30 where the slice starts at the chromosome.
+    own_start: torch.Tensor | None = None  # (S,) int32
+    own_end: torch.Tensor | None = None  # (S,) int32
+    halo_lo: torch.Tensor | None = None  # (S,) int32
 
     def nbytes(self) -> int:
         return sum(
             t.numel() * t.element_size()
             for t in (self.occ, self.lookup, self.freq_table, self.ref_flat,
-                      self.ref_offsets, self.ref_lengths)
+                      self.ref_offsets, self.ref_lengths, self.own_start,
+                      self.own_end, self.halo_lo)
+            if t is not None
         )
 
 
-def _device_index(occ, lookup, ref_flat, ref_offsets, ref_lengths, device):
+def _device_index(occ, lookup, ref_flat, ref_offsets, ref_lengths, device,
+                  freq_table=None, num_occurrences=None, **shard):
+    """The tensors on `device`. A whole index derives `freq_table` and
+    `num_occurrences` from its own CSR; a shard passes the global ones, and
+    its `own_start`, `own_end` and `halo_lo`."""
     lookup = np.asarray(lookup).astype(np.int32)
     as_t = lambda x: torch.tensor(np.ascontiguousarray(x), device=device)
+    if freq_table is None:
+        freq_table = np.diff(lookup)
+    if num_occurrences is None:
+        num_occurrences = np.asarray(occ).shape[0]
     return DeviceIndex(
         occ=as_t(np.asarray(occ).view(np.int64)),
         lookup=as_t(lookup),
-        freq_table=as_t(np.diff(lookup)),
+        freq_table=as_t(np.asarray(freq_table).astype(np.int32)),
         ref_flat=as_t(np.asarray(ref_flat, np.uint8)),
         ref_offsets=as_t(np.asarray(ref_offsets).astype(np.int64)),
         ref_lengths=as_t(np.asarray(ref_lengths).astype(np.int32)),
-        num_occurrences=int(np.asarray(occ).shape[0]),
+        num_occurrences=int(num_occurrences),
+        **{k: as_t(np.asarray(v).astype(np.int32)) for k, v in shard.items()},
+    )
+
+
+def device_index_shard(
+    occ, lookup, ref_flat, ref_offsets, own_start, own_end, halo_lo,
+    freq_table, num_occurrences: int, ref_lengths, device: torch.device | str,
+) -> DeviceIndex:
+    """One shard of a coordinate-sharded index on `device`: its local
+    occurrences (uint64 or int64 ``sid << 32 | pos``) and CSR, its
+    reference slice with its offsets, its owned ranges and halo starts,
+    beside the global `freq_table`, `num_occurrences` and `ref_lengths`."""
+    return _device_index(
+        occ, lookup, ref_flat, ref_offsets, ref_lengths, device,
+        freq_table=freq_table, num_occurrences=num_occurrences,
+        own_start=own_start, own_end=own_end, halo_lo=halo_lo,
     )
 
 
@@ -69,6 +107,11 @@ def device_index_from_host(
     )
 
 
+def _pairs_to_occ(pairs: np.ndarray) -> np.ndarray:
+    pairs = pairs.astype(np.uint64)
+    return (pairs[:, 0] << np.uint64(32)) | pairs[:, 1]
+
+
 def device_index_from_jax(arrays: dict, device: torch.device | str) -> DeviceIndex:
     """The port's index from the fields of a fem_tpu DeviceIndex, given as
     numpy arrays (``occ_rows``, ``ref_rows``, ``csr_rows``, ``ref_offsets``,
@@ -78,8 +121,7 @@ def device_index_from_jax(arrays: dict, device: torch.device | str) -> DeviceInd
     the flat codes padded to 64-byte rows, cut here back to the flat layout
     (the trailing gap equals the leading one, ``ref_offsets[0]``)."""
     n = int(arrays["num_occurrences"])
-    pairs = np.asarray(arrays["occ_rows"]).reshape(-1, 2)[:n].astype(np.uint64)
-    occ = (pairs[:, 0] << np.uint64(32)) | pairs[:, 1]
+    occ = _pairs_to_occ(np.asarray(arrays["occ_rows"]).reshape(-1, 2)[:n])
     csr = np.asarray(arrays["csr_rows"])
     lookup = np.concatenate([csr[:, 0], csr[-1:, 1]])
     offsets = np.asarray(arrays["ref_offsets"]).astype(np.int64)
@@ -87,6 +129,26 @@ def device_index_from_jax(arrays: dict, device: torch.device | str) -> DeviceInd
     total = int(offsets[-1] + lengths[-1] + offsets[0])
     flat = np.asarray(arrays["ref_rows"]).view(np.uint8).reshape(-1)[:total]
     return _device_index(occ, lookup, flat, offsets, lengths, device)
+
+
+def device_index_from_jax_shard(arrays: dict, shard: int, device: torch.device | str) -> DeviceIndex:
+    """Shard `shard` of a fem_tpu ShardedIndex, given as numpy arrays of its
+    fields (``lookup``, ``occ_rows``, ``ref_flat``, ``ref_offsets``,
+    ``own_start``, ``own_end``, ``halo_lo``, ``freq_table``,
+    ``num_occurrences``, ``ref_lengths``): the same shard in the port's
+    layout. ``occ_rows`` holds the shard's (sid, pos) u32 pairs in CSR
+    order, as many as its local lookup counts; ``ref_flat`` is kept whole
+    (its tail past the slice is sentinel code 4)."""
+    lookup = np.asarray(arrays["lookup"])[shard]
+    n = int(lookup[-1])
+    pairs = np.asarray(arrays["occ_rows"])[shard].reshape(-1, 2)[:n]
+    return device_index_shard(
+        _pairs_to_occ(pairs), lookup, np.asarray(arrays["ref_flat"])[shard],
+        np.asarray(arrays["ref_offsets"])[shard], np.asarray(arrays["own_start"])[shard],
+        np.asarray(arrays["own_end"])[shard], np.asarray(arrays["halo_lo"])[shard],
+        arrays["freq_table"], int(arrays["num_occurrences"]), arrays["ref_lengths"],
+        device,
+    )
 
 
 @dataclasses.dataclass(frozen=True)

@@ -15,14 +15,20 @@ package's CLI prints them.
 The device engine runs on the card (`--device cuda`, the default) and
 raises when CUDA is absent; `--device cpu` runs the plain torch versions.
 `-t N` fans the device engine out into N worker processes on the same
-device. Behavioral improvement over the reference, preserved
+device. `--local-devices N` gives this process N grid entries (cards dealt
+out round-robin, or N CPU entries under `--device cpu`): more than one is a
+data-parallel grid. `--index-shards N` splits the index by coordinate over
+N shards of a (data, index) grid. `--coordinator host:port` with
+`--num-hosts` and `--host-id` joins the processes with torch.distributed:
+independent processes over interleaved batches with the counters summed at
+the end, or, with `--index-shards`, one grid over every process's entries
+(parallel/multihost.py). Behavioral improvement over the reference, preserved
 intentionally: the reference *ignores* the k/step stored in the index
 header and filters with its hardcoded defaults (SURVEY.md §5.6); we take
 k/step from the index file, which is the only correct interpretation.
 
-Not ported: --cap-vote (the XLA slab path), --no-warm-shadow (shadow-warm),
-and --coordinator, --local-devices, --index-shards (multi-GPU and the
-coordinate-sharded index, later slices); argparse rejects them.
+Not ported: --cap-vote (the XLA slab path) and --no-warm-shadow
+(shadow-warm); argparse rejects them.
 """
 
 from __future__ import annotations
@@ -234,6 +240,15 @@ def map_main(argv: list[str]) -> int:
                    help="worker run: total number of worker processes")
     p.add_argument("--host-id", type=int, default=0,
                    help="worker run: this process's id in [0, num-hosts)")
+    p.add_argument("--coordinator", default=None,
+                   help="multi-process run: torch.distributed rendezvous host:port")
+    p.add_argument("--local-devices", type=int, default=None,
+                   help="grid entries this process uses (cards, or CPU entries "
+                        "under --device cpu)")
+    p.add_argument("--index-shards", type=int, default=1,
+                   help="coordinate-shard the index over this many grid shards "
+                        "(whole-genome scale; spans processes when run under "
+                        "--coordinator)")
     args = p.parse_args(argv)
 
     # Constraint surface of check_args (src/FEM_map.c:29-55).
@@ -252,6 +267,10 @@ def map_main(argv: list[str]) -> int:
         print("Wrong name of seeding algorithm!", file=sys.stderr)
         return 1
 
+    if args.index_shards > 1 and args.t > 1:
+        print("--index-shards is incompatible with -t > 1 worker processes.",
+              file=sys.stderr)
+        return 1
     if args.t > 1 and args.engine == "device" and args.num_hosts == 1:
         # The reference's -t spawns t pthread mapping workers over disjoint
         # batches (src/FEM_map.c:182-189). Here each worker is a PROCESS
@@ -261,17 +280,49 @@ def map_main(argv: list[str]) -> int:
         # files; the parent merges both.
         return _map_parent_workers(args, argv)
 
+    import torch
+
+    from fem_tpu_torch.parallel import multihost
+
+    # Each process maps a disjoint interleaved batch subset and writes its
+    # own SAM shard; -t workers' parent merges them, a process group sums
+    # the counters at the end.
+    entries = [torch.device("cpu")]
+    if args.engine == "device":
+        entries = multihost.local_entries(
+            args.device, _local_count(args), args.num_hosts, args.host_id)
+    ctx = multihost.initialize(args.coordinator, args.num_hosts, args.host_id, entries)
+    try:
+        return _map_in_process(args, ctx, entries, multihost)
+    finally:
+        multihost.finalize(ctx)
+
+
+def _local_count(args) -> int | None:
+    """--local-devices; by default one entry for a -t worker, else every
+    card (None), raised to as many entries as the index shards need: a grid
+    may name a card more than once."""
+    import torch
+
+    if args.local_devices is not None:
+        return args.local_devices
+    if args.index_shards <= 1:
+        return 1 if args.coordinator is None and args.num_hosts > 1 else None
+    n_proc = args.num_hosts if args.coordinator else 1
+    count = torch.cuda.device_count() if torch.device(args.device).type == "cuda" else 1
+    count = max(count, 1)
+    while (count * n_proc) % args.index_shards:
+        count += 1
+    return count
+
+
+def _map_in_process(args, ctx, entries, multihost) -> int:
     from fem_tpu_torch.config import FemArgs
     from fem_tpu_torch.golden.model import GoldenMapper, MappingStats
     from fem_tpu_torch.index.storage import load_index
     from fem_tpu_torch.io.fastx import read_fasta, stream_fastq_batches
     from fem_tpu_torch.io.sam import SamWriter
-    from fem_tpu_torch.parallel import multihost
     from fem_tpu_torch.utils.metrics import PipelineMetrics, Timer
-
-    # Each worker process maps a disjoint interleaved batch subset and
-    # writes its own SAM shard; the parent merges them.
-    ctx = multihost.initialize(args.num_hosts, args.host_id)
 
     reference = read_fasta(args.ref)
     index = load_index(args.index)
@@ -298,6 +349,29 @@ def map_main(argv: list[str]) -> int:
         ckpt_hist = _read_checkpoint(ckpt_path)
         if ckpt_hist:
             skip_reads, resume_bytes = ckpt_hist[-1]
+    # Global-mesh mode: the index is coordinate-sharded over a grid spanning
+    # all processes, so every process consumes the SAME batch stream (each
+    # emits the data rows it owns) instead of an interleaved subset.
+    global_mesh_mode = args.index_shards > 1 and ctx.initialized
+    if global_mesh_mode and args.checkpoint:
+        # Every step is collective: all processes MUST resume from the same
+        # stream position. They crash at different positions, so they meet
+        # at the minimum; each truncates its own shard to its byte offset
+        # AT that position (positions are batch boundaries, the same on
+        # every process).
+        common = multihost.allreduce_min(skip_reads, ctx)
+        if common != skip_reads:
+            at = [h for h in ckpt_hist if h[0] == common]
+            if not at:
+                print(
+                    f"Checkpoint history too short to rewind from "
+                    f"{skip_reads} to the fleet minimum {common}; delete "
+                    f"the checkpoints and restart the run.",
+                    file=sys.stderr,
+                )
+                return 1
+            skip_reads, resume_bytes = at[0]
+            ckpt_hist = [h for h in ckpt_hist if h[0] <= common]
     out_path = multihost.shard_path(args.output, ctx)
     if skip_reads and not os.path.exists(out_path):
         print(f"Checkpoint present but {out_path} is missing; "
@@ -308,8 +382,9 @@ def map_main(argv: list[str]) -> int:
 
     def batches():
         skipped = 0
-        stream = multihost.shard_batches(
-            stream_fastq_batches(args.read1, batch_size=args.batch_size), ctx)
+        stream = stream_fastq_batches(args.read1, batch_size=args.batch_size)
+        if not global_mesh_mode:
+            stream = multihost.shard_batches(stream, ctx)
         for batch in stream:
             if skipped + batch.num_reads <= skip_reads:
                 skipped += batch.num_reads
@@ -379,10 +454,25 @@ def map_main(argv: list[str]) -> int:
                 )
                 if v is not None
             }
+            if args.index_shards > 1:
+                tune["index_mesh"] = grid = multihost.global_index_mesh(
+                    args.index_shards, entries, ctx)
+                n_dp = grid.grid.shape[0]
+                if args.batch_size % n_dp:
+                    print(f"--batch-size must be divisible by the data mesh ({n_dp}).",
+                          file=sys.stderr)
+                    return 1
+            elif len(entries) > 1 and args.batch_size % len(entries) == 0:
+                # Reads split over this process's entries, the index on each.
+                tune["mesh"] = grid = multihost.local_data_mesh(entries)
+            else:
+                grid = None
+            if grid is not None:
+                _print_grid(grid)
             engine = MappingEngine(
                 fem_args, reference, index,
                 EngineConfig(batch_size=args.batch_size, **tune),
-                device=args.device,
+                device=entries[0],
             )
             source = ThreadedBatchSource(batches())
             bt = Timer()
@@ -419,6 +509,9 @@ def map_main(argv: list[str]) -> int:
         metrics.fallback_reads = engine.fallback_reads
         metrics.retried_reads = engine.retried_reads
 
+    # The counters summed over the processes (the reference's per-thread
+    # stats rollup at join, src/FEM_map.c:200-212).
+    total = multihost.allreduce_stats(total, ctx)
     if args.stats_json:
         metrics.dump_json(multihost.shard_path(args.stats_json, ctx), total)
     if ctx.host_id != 0:
@@ -428,6 +521,21 @@ def map_main(argv: list[str]) -> int:
     _print_counters([getattr(total, k) for k in _COUNTER_KEYS])
     print(f"Time: {time.time() - t0:f}s", file=sys.stderr)
     return 0
+
+
+def _print_grid(grid) -> None:
+    """What the grid is and where its cells run, on stderr: a grid that
+    names one card more than once says so."""
+    import torch
+
+    shape = "x".join(str(x) for x in grid.devices.shape)
+    mine = grid.local_cells()
+    devs = sorted({str(dev) for _, _, dev in mine})
+    where = (f"every cell of this process shares {devs[0]}" if len(devs) == 1
+             else f"{len(devs)} devices: {', '.join(devs)}")
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    print(f"[mesh] {grid.axis_names} grid {shape}, {len(mine)} cells in this process, "
+          f"{where} ({cards} card(s) on this machine)", file=sys.stderr)
 
 
 def main(argv: list[str] | None = None) -> int:

@@ -1,5 +1,5 @@
-"""The batched mapping engine on one CUDA device (fem_tpu/pipeline/engine.py
-on one chip).
+"""The batched mapping engine (fem_tpu/pipeline/engine.py), on one CUDA
+device or on a grid of them (parallel/).
 
 Reads are batched; both strands go through one device step (hash ->
 q-gram DP -> candidate filter -> banded Myers), and the small set of
@@ -19,6 +19,14 @@ event; drain threads wait on that event only, then emit. In the unordered
 stream capacity-overflow reads gather in a retry pool and go out again as
 pipelined tier-1 batches; `watermark_reads` is the longest stream prefix
 whose records the consumer has had, retries included.
+
+On a grid (`EngineConfig.mesh`: reads over a data axis; `.index_mesh`:
+also the index split by coordinate over an index axis), each cell maps its
+row's reads against its shard and packs a segment of its own; the drain
+reads them all. A grid that spans processes (parallel/multihost.py) joins
+each data row's cells over torch.distributed; its drains then run on the
+consumer thread, in stream order, because every process must issue the
+same collectives in the same order.
 """
 
 from __future__ import annotations
@@ -33,13 +41,14 @@ from typing import Dict, Iterable, Iterator, List, NamedTuple, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from fem_tpu_torch.config import FemArgs
 from fem_tpu_torch.core.encoding import encode
 from fem_tpu_torch.index.storage import FemIndex
 from fem_tpu_torch.io.fastx import ReadBatch, Reference
 from fem_tpu_torch.native import NativeCpuMapper, NativeEmitter
-from fem_tpu_torch.ops.candidates import generate_candidates
+from fem_tpu_torch.ops.candidates import candidates_back, candidates_front
 from fem_tpu_torch.ops.hashing import ambiguous_base_counts, reverse_complement, seed_hashes
 from fem_tpu_torch.ops.types import DeviceIndex, FilterParams, device_index_from_host
 from fem_tpu_torch.ops.verify import verify_candidates
@@ -78,20 +87,39 @@ class EngineConfig:
     tiers: tuple[TierConfig, ...] | None = None  # retry ladder above tier 0;
     # None = derived from the caps above (MappingEngine._default_tiers).
     # () turns device retries off: overflow reads go to the host mapper.
+    mesh: object | None = None  # parallel.mesh.DeviceMesh ("data",): reads
+    # split over its devices, the whole index on each
+    index_mesh: object | None = None  # DeviceMesh ("data", "index"): the
+    # index also split by reference coordinate (parallel/sharded_index.py)
 
 
-def engine_config_from_jax(fields: dict) -> EngineConfig:
+def engine_config_from_jax(fields: dict, device: torch.device | str = "cuda") -> EngineConfig:
     """The port's EngineConfig from a fem_tpu EngineConfig given as plain
-    values (`dataclasses.asdict`), its TierConfigs included: the fields the
-    port does not have (cap_vote, aggregate_fetch, use_pallas,
-    serialize_dispatch, mesh, index_mesh) are dropped."""
+    values (`dataclasses.asdict`, or the fields as they are), its
+    TierConfigs included. A JAX mesh (`mesh`, `index_mesh`, or its shape)
+    comes across as a grid of the same shape, (n_dp,) or (n_dp, n_ip),
+    whose every entry is `device`. The fields the port does not have
+    (cap_vote, aggregate_fetch, use_pallas, serialize_dispatch) are dropped."""
+    from fem_tpu_torch.parallel.mesh import make_index_mesh, make_mesh
+
     def keep(cls, d):
         names = {f.name for f in dataclasses.fields(cls)}
         return {k: v for k, v in d.items() if k in names}
 
+    def shape(m):  # a jax Mesh (its .shape maps axis -> size) or a shape
+        return tuple(m.shape.values()) if hasattr(m, "shape") else tuple(m)
+
     kept = keep(EngineConfig, fields)
     if kept.get("tiers") is not None:
-        kept["tiers"] = tuple(TierConfig(**keep(TierConfig, t)) for t in kept["tiers"])
+        kept["tiers"] = tuple(
+            TierConfig(**keep(TierConfig, t if isinstance(t, dict) else dataclasses.asdict(t)))
+            for t in kept["tiers"])
+    if kept.get("mesh") is not None:
+        (n,) = shape(kept["mesh"])
+        kept["mesh"] = make_mesh([device] * n)
+    if kept.get("index_mesh") is not None:
+        n_dp, n_ip = shape(kept["index_mesh"])
+        kept["index_mesh"] = make_index_mesh([device] * (n_dp * n_ip), n_ip)
     return EngineConfig(**kept)
 
 
@@ -113,11 +141,42 @@ def map_core(
     accept_cap: int = 4096,
     mark=None,
 ) -> dict:
-    """The per-batch mapping step, both strands. Returns device tensors:
-    the accepted hits compacted in slab order (lane-major, ascending band
-    start), the per-lane counters of fem_tpu's map_core, and the per-read
-    fallback bits and masked counter sums that fem_tpu's pack_outputs
-    derives. `mark(stage)`, when given, is called as each stage ends."""
+    """The per-batch mapping step, both strands, on a whole index. Returns
+    device tensors: the accepted hits compacted in slab order (lane-major,
+    ascending band start), the per-lane counters of fem_tpu's map_core, and
+    the per-read fallback bits and masked counter sums that fem_tpu's
+    pack_outputs derives. `mark(stage)`, when given, is called as each
+    stage ends."""
+    steps = map_core_steps(index, codes, lengths, params, verify_cap, accept_cap, mark)
+    value = None
+    while True:  # one cell: every reduction is the value itself
+        try:
+            _, value = steps.send(value)
+        except StopIteration as stop:
+            return stop.value
+
+
+def map_core_steps(
+    index: DeviceIndex,
+    codes: torch.Tensor,  # (B, Lmax) uint8
+    lengths: torch.Tensor,  # (B,) int32
+    params: FilterParams,
+    verify_cap: int,
+    accept_cap: int = 4096,
+    mark=None,
+):
+    """map_core as a generator, for one cell of a grid: at each reduction
+    across index shards it yields (op, value) and takes back the reduced
+    value (the caller's reduce hook: parallel/mesh.py:GridReducer). The
+    ops: "max" or "sum" over the index shards of the cell's data row,
+    "sum_all" over every cell. Returns map_core's dict.
+
+    The reductions (fem_tpu/parallel/sharded_index.py:302-319): the
+    last-seed truncation bound (a max, in the middle of generation); the
+    per-read candidate counts (sum); the fallback, inherent and retry bits
+    (max), so that a read that overflows any shard retries whole and is
+    counted by no shard; the verify-slab total (sum_all). The fallback bits
+    and the counter sums over the kept reads come after them."""
     mark = mark or (lambda stage: None)
     e = params.error_threshold
     B = codes.shape[0]
@@ -127,7 +186,9 @@ def map_core(
     hashes = seed_hashes(both, params.kmer_size)
     amb = ambiguous_base_counts(both, lens2, params.kmer_size)
     mark("hash")
-    cand = generate_candidates(both, lens2, hashes, amb, index, params)
+    front = candidates_front(both, lens2, hashes, amb, index, params)
+    tkey = yield "max", front.tkey
+    cand = candidates_back(front, tkey, index, params)
     mark("candidates")
 
     # Compact valid candidates into the verify slab, lane-major and in
@@ -166,10 +227,15 @@ def map_core(
     ok_lane = ok_v & ok_a
     retry = ~(ok_lane[:B] & ok_lane[B:])
 
+    num_candidates = yield "sum", cand.num_candidates
+    needs_fallback, inherent_fallback, retry = yield "max", (
+        cand.needs_fallback, cand.inherent_fallback, retry)
+    total_all = yield "sum_all", total
+
     # Per-read fallback bits and the counter sums over the other reads
     # (fem_tpu pack_outputs); dp sums in int64, so no 16/16 split.
-    inherent = cand.inherent_fallback[:B] | cand.inherent_fallback[B:]
-    fb = cand.needs_fallback[:B] | cand.needs_fallback[B:] | retry | inherent
+    inherent = inherent_fallback[:B] | inherent_fallback[B:]
+    fb = needs_fallback[:B] | needs_fallback[B:] | retry | inherent
     keep = ~torch.cat([fb, fb])
     out = {
         "slab_overflow": (total > verify_cap) | (n_accepted > acc_cap),
@@ -180,14 +246,14 @@ def map_core(
         "a_ed": compact(vres.edit_distance),
         "a_end": compact(vres.end_offset),
         "n_accepted": n_accepted,
-        "num_candidates": cand.num_candidates,
+        "num_candidates": num_candidates,
         "dp_total": cand.dp_total,
-        "needs_fallback": cand.needs_fallback,
-        "inherent_fallback": cand.inherent_fallback,
-        "total_candidates": total,
+        "needs_fallback": needs_fallback,
+        "inherent_fallback": inherent_fallback,
+        "total_candidates": total_all,
         "fb": fb,
         "inherent": inherent,
-        "sum_nc": (cand.num_candidates.long() * keep).sum(),
+        "sum_nc": (num_candidates.long() * keep).sum(),
         "sum_dp": (cand.dp_total * keep).sum(),
     }
     mark("accept")
@@ -205,19 +271,43 @@ def pack_result(out: dict) -> torch.Tensor:
     return torch.cat(parts)
 
 
-def unpack_result(flat: np.ndarray, acc_cap: int, num_reads: int) -> dict:
-    """`pack_result`'s layout on the host, as views of `flat`."""
-    host = dict(zip(_HOST_SCALARS, (int(x) for x in flat[:3])))
-    o = 3
+def unpack_result(flat: np.ndarray, acc_cap: int, num_reads: int, nseg: int = 1) -> dict:
+    """`pack_result`'s layout on the host: `flat` holds `nseg` segments
+    (a grid's cells, data-row-major), each of `num_reads` reads. The header
+    values come back per segment, (nseg,); the hit fields and the per-read
+    bits concatenated over the segments, (nseg * acc_cap,) and
+    (nseg * num_reads,) bool."""
+    w = len(_HOST_SCALARS) + (len(_HOST_FIELDS) - 2) * acc_cap + 2 * num_reads
+    if flat.shape[0] != nseg * w:
+        raise ValueError(f"{flat.shape[0]} values are not {nseg} segments of {w}")
+    segs = flat.reshape(nseg, w)
+    host = {k: segs[:, j].copy() for j, k in enumerate(_HOST_SCALARS)}
+    o = len(_HOST_SCALARS)
     for k in _HOST_FIELDS:
         n = num_reads if k in ("fb", "inherent") else acc_cap
-        host[k] = flat[o : o + n]
+        host[k] = segs[:, o : o + n].reshape(-1)
         o += n
     host["fb"] = host["fb"].astype(bool)
     host["inherent"] = host["inherent"].astype(bool)
     # Hits past the accept slots were dropped; their reads carry fb.
-    host["n_accepted"] = min(host["n_accepted"], acc_cap)
+    host["n_accepted"] = np.minimum(host["n_accepted"], acc_cap)
     return host
+
+
+def accepted_hits(host: dict, acc_cap: int):
+    """The accepted hits of unpacked segments, each segment cut to its
+    count, stable-sorted by lane (fem_tpu/pipeline/engine.py
+    `_accepted_arrays`): on a grid the segments of one read come from
+    several cells, and stability keeps each lane's hits in the cells' order,
+    which is ascending reference order. Returns (lane, sid, pos, ed, end)."""
+    counts = host["n_accepted"]
+    keep = np.concatenate(
+        [np.arange(int(c)) + j * acc_cap for j, c in enumerate(counts)]).astype(np.int64)
+    cols = [host[k][keep] for k in ("a_lane", "a_sid", "a_pos", "a_ed", "a_end")]
+    if counts.shape[0] > 1:
+        order = np.argsort(cols[0], kind="stable")
+        cols = [c[order] for c in cols]
+    return tuple(cols)
 
 
 class StageTimer:
@@ -259,8 +349,8 @@ class Pending(NamedTuple):
     """A dispatched batch: what `submit_batch` hands to a drain."""
 
     batch: ReadBatch
-    flat: torch.Tensor  # pack_result's tensor on the host (pinned on a card)
-    ready: object  # torch.cuda.Event recorded after the copy, None on the CPU
+    flat: torch.Tensor  # pack_result's segments on the host (pinned on a card)
+    ready: list  # torch.cuda.Events recorded after the copies (none on the CPU)
     tier: int
     seq: int | None  # stream position of a tier-0 batch
     origins: list | None  # a pooled retry batch: its reads' origin seqs
@@ -277,19 +367,38 @@ class MappingEngine:
         *,
         device: torch.device | str = "cuda",
     ):
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(f"device {self.device} requested but CUDA is not available")
         self.args = args
         self.reference = reference
         self.config = config or EngineConfig()
-        self.dindex = device_index_from_host(index, reference, self.device)
-        # One compute stream per engine: every device step and every result
+        if self.config.mesh is not None and self.config.index_mesh is not None:
+            raise ValueError("EngineConfig takes a mesh or an index_mesh, not both")
+        self.grid = self.config.index_mesh or self.config.mesh  # None: one device
+        devices = [torch.device(device)] if self.grid is None else self.grid.local_devices()
+        for dev in devices:
+            if dev.type == "cuda" and not torch.cuda.is_available():
+                raise RuntimeError(f"device {dev} requested but CUDA is not available")
+        self.device = devices[0]
+        self._cross = self.grid is not None and self.grid.crosses_processes
+        # One compute stream per device: every device step and every result
         # copy is enqueued on it, from whichever thread submits.
-        self._stream = None
-        if self.device.type == "cuda":
-            self._stream = torch.cuda.Stream(self.device)
-            self._stream.wait_stream(torch.cuda.current_stream(self.device))
+        self._streams = {}
+        for dev in devices:
+            if dev.type == "cuda":
+                self._streams[dev] = torch.cuda.Stream(dev)
+                self._streams[dev].wait_stream(torch.cuda.current_stream(dev))
+        self._stream = self._streams.get(self.device)
+        self._cell_index: dict = {}  # (d, i) -> DeviceIndex of a grid's cell
+        if self.config.index_mesh is not None:
+            self._init_sharded_index(index)
+            self.dindex = None
+        else:
+            self.dindex = device_index_from_host(index, reference, self.device)
+            if self.grid is not None:  # the whole index once per device
+                on = {self.device: self.dindex}
+                for d, i, dev in self.grid.local_cells():
+                    if dev not in on:
+                        on[dev] = device_index_from_host(index, reference, dev)
+                    self._cell_index[d, i] = on[dev]
         self._native = NativeEmitter(reference, args.error_threshold)
         self._cpu_mapper = NativeCpuMapper(args, reference, index)
         self._fallback_lock = threading.Lock()
@@ -311,7 +420,25 @@ class MappingEngine:
         self._watermark_seq = 0
         self._watermark_reads = 0
         self.consumed_reads = 0
-        self.stage_timer: StageTimer | None = None
+        self.stage_timer: StageTimer | None = None  # one device only
+
+    def _init_sharded_index(self, index: FemIndex) -> None:
+        """Each cell's shard on its device, once per (device, shard)."""
+        from fem_tpu_torch.parallel.sharded_index import build_sharded_index
+
+        _, n_ip = self._mesh_shape()
+        sh = build_sharded_index(index, self.reference, n_ip)
+        self._sharded_halo = sh.halo
+        on = {}
+        for d, i, dev in self.grid.local_cells():
+            if (dev, i) not in on:
+                on[dev, i] = sh.device_index(i, dev)
+            self._cell_index[d, i] = on[dev, i]
+
+    def _mesh_shape(self) -> Tuple[int, int]:
+        """(data shards, index shards)."""
+        grid = self.config.index_mesh or self.config.mesh
+        return (1, 1) if grid is None else tuple(grid.grid.shape)
 
     def _default_tiers(self) -> tuple:
         """The retry ladder above tier 0 when the config names none: about
@@ -323,6 +450,10 @@ class MappingEngine:
         "batch:cap_occ:cap_cand:verify_per_read:accept_per_read", the
         tuning knob for heavy-tailed genomes where the retry tax dominates."""
         c = self.config
+        n_dp, _ = self._mesh_shape()
+
+        def align(b):  # batch must split evenly over the data axis
+            return max(-(-b // n_dp) * n_dp, n_dp)
 
         def cap8(x):  # occurrence slabs are 8-slot-chunk aligned
             return -(-x // 8) * 8
@@ -338,7 +469,7 @@ class MappingEngine:
                     if min(b, occ, cand, vpr, apr) < 1:
                         raise ValueError("all fields must be >= 1")
                     rungs.append(TierConfig(
-                        batch_size=b, cap_occ=cap8(occ), cap_cand=cap8(cand),
+                        batch_size=align(b), cap_occ=cap8(occ), cap_cand=cap8(cand),
                         verify_per_read=vpr, accept_per_read=apr,
                     ))
             except ValueError as exc:
@@ -350,14 +481,14 @@ class MappingEngine:
             return tuple(rungs)
 
         t1 = TierConfig(
-            batch_size=min(c.batch_size, 512),
+            batch_size=align(min(c.batch_size, 512)),
             cap_occ=cap8(max(8 * c.cap_occ, 512)),
             cap_cand=cap8(max(8 * c.cap_cand, 512)),
             verify_per_read=max(int(4 * c.verify_per_read), 32),
             accept_per_read=max(int(4 * c.accept_per_read), 16),
         )
         t2 = TierConfig(
-            batch_size=min(c.batch_size, 64),
+            batch_size=align(min(c.batch_size, 64)),
             cap_occ=max(cap8(8 * t1.cap_occ), 4096),
             cap_cand=max(cap8(8 * t1.cap_cand), 4096),
             verify_per_read=max(8 * t1.verify_per_read, 2048),
@@ -381,15 +512,30 @@ class MappingEngine:
         accept_cap = max(int(2 * tc.batch_size * tc.accept_per_read), 64)
         return verify_cap, accept_cap
 
-    def _upload(self, array: np.ndarray) -> torch.Tensor:
-        """A host array on the engine's device: staged in pinned memory and
-        copied without blocking the submitting thread (on the CPU, as is)."""
+    def _cell_caps(self, tc: TierConfig) -> Tuple[int, int]:
+        """(verify slots, accept slots) of one cell of a grid: the step's
+        over the cells (fem_tpu/pipeline/engine.py:629-652)."""
+        verify_cap, accept_cap = self._caps(tc)
+        n_dp, n_ip = self._mesh_shape()
+        return verify_cap // (n_dp * n_ip), max(accept_cap // (n_dp * n_ip), 8)
+
+    def _row_reads(self, n: int) -> int:
+        """Reads a data row takes of an n-read batch (the batch is padded
+        with empty reads to a multiple of the data axis)."""
+        n_dp, _ = self._mesh_shape()
+        return -(-n // n_dp)
+
+    def _upload(self, array: np.ndarray, device: torch.device | None = None) -> torch.Tensor:
+        """A host array on a device (the engine's by default): staged in
+        pinned memory and copied without blocking the submitting thread
+        (on the CPU, as is)."""
         t = torch.from_numpy(np.ascontiguousarray(array))
-        if self._stream is None:
+        device = device or self.device
+        if device.type != "cuda":
             return t
         staged = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
         staged.copy_(t)
-        return staged.to(self.device, non_blocking=True)
+        return staged.to(device, non_blocking=True)
 
     def submit_batch(self, batch: ReadBatch, tier: int = 0, origins: list | None = None):
         """Enqueue the device step of one batch and the copy of its result,
@@ -409,6 +555,9 @@ class MappingEngine:
         params = FilterParams.from_args(
             self.args, batch.codes.shape[1], cap_occ=tc.cap_occ, cap_cand=tc.cap_cand,
         )
+        if self.grid is not None:
+            flat, ready = self._submit_grid(batch, tc, params)
+            return self._register_pending(batch, flat, ready, tier, origins, None)
         verify_cap, accept_cap = self._caps(tc)
         timer = self.stage_timer
         on_stream = (torch.cuda.stream(self._stream) if self._stream is not None
@@ -421,16 +570,66 @@ class MappingEngine:
                 self.dindex, codes, lengths, params, verify_cap, accept_cap,
                 mark=(lambda stage: timer.mark(events, stage)) if timer is not None else None,
             )
-            flat, ready = pack_result(out), None
+            flat, ready = pack_result(out), []
             if self._stream is not None:
                 # The copy stays on the compute stream (no cross-stream
                 # lifetime to track); the drain waits on the event only.
                 host = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
                 host.copy_(flat, non_blocking=True)
-                ready = torch.cuda.Event()
-                ready.record(self._stream)
+                ready = [torch.cuda.Event()]
+                ready[0].record(self._stream)
                 flat = host
         return self._register_pending(batch, flat, ready, tier, origins, events)
+
+    def _submit_grid(self, batch: ReadBatch, tc: TierConfig, params: FilterParams):
+        """One step over the grid's cells in this process: the batch padded
+        with empty reads to n_dp rows of equal size, each cell's segment
+        copied into one host buffer (segments in `local_cells` order),
+        an event a device after its copies."""
+        n, Lmax = batch.num_reads, batch.codes.shape[1]
+        n_dp, _ = self._mesh_shape()
+        Bloc = self._row_reads(n)
+        if self.config.index_mesh is not None:
+            e = self.args.error_threshold
+            if Lmax + 2 * e > self._sharded_halo:
+                # Owned candidates' verification bands must stay inside the
+                # shard's [start - halo, end + halo) slice.
+                raise ValueError(
+                    f"read length {Lmax} exceeds the sharded-index halo "
+                    f"({self._sharded_halo}); rebuild with a larger halo")
+        if tc.batch_size % n_dp:
+            raise ValueError(f"batch size {tc.batch_size} not divisible by data mesh {n_dp}")
+        codes = np.full((n_dp * Bloc, Lmax), 4, np.uint8)
+        codes[:n] = batch.codes[:n]
+        lengths = np.zeros(n_dp * Bloc, np.int32)
+        lengths[:n] = batch.lengths[:n]
+        segs = self._grid_fn(params, tc)(
+            self._cell_index, codes, lengths, upload=self._upload, streams=self._streams)
+        if not self._streams:
+            return torch.cat(segs), []
+        w = segs[0].numel()
+        host = torch.empty(len(segs) * w, dtype=torch.int64, pin_memory=True)
+        for k, (seg, (_, _, dev)) in enumerate(zip(segs, self.grid.local_cells())):
+            with torch.cuda.stream(self._streams[dev]):
+                host[k * w : (k + 1) * w].copy_(seg, non_blocking=True)
+        ready = []
+        for stream in self._streams.values():
+            ready.append(torch.cuda.Event())
+            ready[-1].record(stream)
+        return host, ready
+
+    def _grid_fn(self, params: FilterParams, tc: TierConfig):
+        """The grid's step at these shapes (parallel/mesh.py,
+        parallel/sharded_index.py)."""
+        verify_cap, accept_cap = self._cell_caps(tc)
+        if self.config.index_mesh is not None:
+            from fem_tpu_torch.parallel.sharded_index import make_index_sharded_map_fn
+
+            return make_index_sharded_map_fn(
+                self.grid, params, verify_cap, accept_cap, gather_rows=self._cross)
+        from fem_tpu_torch.parallel.mesh import make_sharded_map_fn
+
+        return make_sharded_map_fn(self.grid, params, verify_cap, accept_cap)
 
     def _register_pending(self, batch, flat, ready, tier, origins, events) -> Pending:
         seq = None
@@ -450,6 +649,8 @@ class MappingEngine:
         return ([blob] if blob else []), stats
 
     def drain_batch(self, pending: Pending) -> Tuple[List[bytes], MappingStats]:
+        if self._cross:
+            return self._drain_cross_host(pending)
         return self._drain(pending, per_read=False)
 
     def _drain_stream(self, pending: Pending):
@@ -461,7 +662,10 @@ class MappingEngine:
         of the consumer) would let a checkpoint taken right after a crash
         skip drained-but-unwritten reads on resume."""
         acks: list = []
-        recs, stats = self._drain(pending, per_read=False, acks=acks)
+        if self._cross:
+            recs, stats = self._drain_cross_host(pending, acks=acks)
+        else:
+            recs, stats = self._drain(pending, per_read=False, acks=acks)
         # Stream position: original (tier-0) batches advance it; retry
         # batches re-emit reads already counted by their origin batch.
         nreads = pending.batch.num_reads if pending.tier == 0 else 0
@@ -476,14 +680,21 @@ class MappingEngine:
         back in read order. With `per_read`, returns one record list per
         read."""
         batch, flat, ready, tier, seq, origins, events = pending
-        if ready is not None:
-            ready.synchronize()
+        for ev in ready:
+            ev.synchronize()
         if events is not None:
             self.stage_timer.collect(events, tier)
         n = batch.num_reads
-        host = unpack_result(flat.numpy(), self._caps(self._tier(tier))[1], n)
-        fb, inh = host["fb"], host["inherent"]
-        fb_idx = np.flatnonzero(fb)
+        n_dp, n_ip = self._mesh_shape()
+        Bloc = self._row_reads(n)
+        acc_cap = self._cell_caps(self._tier(tier))[1]
+        host = unpack_result(flat.numpy(), acc_cap, Bloc, n_dp * n_ip)
+        # Segments are data-row-major; a row's index shards carry identical
+        # per-read values (reduced in the step): keep index shard 0's.
+        first = slice(0, n_dp * n_ip, n_ip)
+        fb = host["fb"].reshape(n_dp, n_ip, Bloc)[:, 0].reshape(-1)
+        inh = host["inherent"].reshape(n_dp, n_ip, Bloc)[:, 0].reshape(-1)
+        fb_idx = np.flatnonzero(fb[:n])
         inh_idx = fb_idx[inh[fb_idx]]  # no capacity tier can fix these
         cap_idx = fb_idx[~inh[fb_idx]]
         # Stream mode, tier 0: capacity reads wait in the retry pool and
@@ -492,7 +703,10 @@ class MappingEngine:
         pooled = tier == 0 and self._retry_pool is not None and bool(self.tiers)
         splice = inh_idx.size > 0 or (cap_idx.size > 0 and not pooled)
 
-        blob, ends, stats = self._emit_native(batch, host, per_read or splice)
+        blob, ends, stats = self._emit_native(
+            batch, accepted_hits(host, acc_cap), n_dp * Bloc, fb,
+            int(host["sum_nc"][first].sum()), int(host["sum_dp"][first].sum()),
+            per_read or splice)
         # A read is counted by whichever drain finally emits it.
         stats.num_reads = n - int(fb_idx.size)
 
@@ -527,23 +741,97 @@ class MappingEngine:
         else:
             acks.append(mark)
 
-        if ends is None:
-            return ([blob] if blob else []), stats
-        # The emitter's blob holds the covered reads' records in read order
-        # and nothing for a fallback read; ends[r] is read r's end in it.
-        starts = np.concatenate([[0], ends[:-1]])
-        if per_read:
-            segs = [[blob[a:b]] if b > a else [] for a, b in zip(starts.tolist(), ends.tolist())]
-            for i, recs in replaced.items():
-                segs[i] = recs
-            return segs, stats
-        chunks, prev = [], 0
-        for i in sorted(replaced):  # cut the blob only where records go in
-            chunks.append(blob[prev : int(starts[i])])
-            chunks.extend(replaced[i])
-            prev = int(ends[i])
-        chunks.append(blob[prev:])
-        return [c for c in chunks if c], stats
+        return _splice(blob, ends, replaced, per_read), stats
+
+    def _drain_cross_host(self, pending: Pending, acks: list | None = None):
+        """Drain on a grid that spans processes (fem_tpu/pipeline/engine.py
+        `_drain_cross_host`): each data row's segments are all-gathered over
+        the processes of the row, and the row's owner (round-robin over
+        them) emits its reads; counters cover the owned reads and are summed
+        over the processes at the end of the stream
+        (multihost.allreduce_stats). The owned rows' fallback bitmaps are
+        all-gathered over every process, so each derives the same list of
+        capacity-overflow reads and joins the same tier dispatches, in the
+        same order; inherent reads go to the row owner's host mapper, and
+        reads past the last tier round-robin over the processes."""
+        from fem_tpu_torch.parallel.multihost import allgather_bitmaps, gather_rows
+
+        batch, flat, ready, tier, seq, origins, events = pending
+        for ev in ready:
+            ev.synchronize()
+        mesh = self.grid
+        n = batch.num_reads
+        n_dp, n_ip = self._mesh_shape()
+        Bloc = self._row_reads(n)
+        acc_cap = self._cell_caps(self._tier(tier))[1]
+        rows = gather_rows(mesh, flat.reshape(len(mesh.local_cells()), -1))
+        me = mesh.rank
+        fb_own = np.zeros(n_dp * Bloc, bool)
+        inh_own = np.zeros(n_dp * Bloc, bool)
+        owned = {}
+        for d in sorted(rows):
+            if mesh.row_owner(d) != me:
+                continue
+            owned[d] = host = unpack_result(rows[d].reshape(-1), acc_cap, Bloc, n_ip)
+            fb_own[d * Bloc : (d + 1) * Bloc] = host["fb"][:Bloc]
+            inh_own[d * Bloc : (d + 1) * Bloc] = host["inherent"][:Bloc]
+        fb_all, inh_all = allgather_bitmaps(fb_own, inh_own)
+
+        records: List[bytes] = []
+        stats = MappingStats()
+        for d, host in owned.items():
+            lo = d * Bloc
+            n_row = min(max(n - lo, 0), Bloc)
+            if n_row == 0:
+                continue
+            rb = ReadBatch(batch.names[lo : lo + n_row], batch.seqs[lo : lo + n_row],
+                           batch.quals[lo : lo + n_row], batch.codes[lo : lo + n_row],
+                           batch.lengths[lo : lo + n_row])
+            fb, inh = host["fb"][:Bloc], host["inherent"][:Bloc]
+            fb_idx = np.flatnonzero(fb[:n_row])
+            inh_idx = fb_idx[inh[fb_idx]]
+            blob, ends, st = self._emit_native(
+                rb, accepted_hits(host, acc_cap), Bloc, fb, int(host["sum_nc"][0]),
+                int(host["sum_dp"][0]), inh_idx.size > 0)
+            st.num_reads = n_row - int(fb_idx.size)
+            replaced = {}
+            for i in inh_idx:  # the row owner host-maps its inherent reads
+                replaced[int(i)], s = self._map_read_fallback(rb.names[i], rb.seqs[i], rb.quals[i])
+                st += s
+            records.extend(_splice(blob, ends, replaced, False))
+            stats += st
+
+        # Capacity retry, collectively: the same list on every process.
+        cap_idx = np.flatnonzero(fb_all[:n] & ~inh_all[:n])
+        reads = [(batch.names[i], batch.seqs[i], batch.quals[i]) for i in cap_idx]
+        if reads and tier < len(self.tiers):
+            with self._fallback_lock:
+                self.retried_reads += len(reads)
+            B_t = self._tier(tier + 1).batch_size
+            for lo in range(0, len(reads), B_t):
+                r2, s2 = self._drain_cross_host(
+                    self.submit_batch(self._subbatch(reads[lo : lo + B_t]), tier + 1))
+                records.extend(r2)
+                stats += s2
+        elif reads:
+            nproc = dist.get_world_size()
+            for j, (nm, sq, ql) in enumerate(reads):
+                if j % nproc == me:
+                    r, s = self._map_read_fallback(nm, sq, ql)
+                    records.extend(r)
+                    stats += s
+
+        def mark():
+            if seq is not None:
+                with self._pool_lock:
+                    self._batch_state[seq][2] = True
+            self._advance_watermark()
+
+        if acks is None:
+            mark()
+        else:
+            acks.append(mark)
+        return records, stats
 
     def _advance_watermark(self) -> None:
         with self._pool_lock:
@@ -595,36 +883,37 @@ class MappingEngine:
             stats += s
         return per, stats
 
-    def _emit_native(self, batch: ReadBatch, host: dict, want_ends: bool):
+    def _emit_native(self, batch: ReadBatch, hits: tuple, B: int, fb: np.ndarray,
+                     sum_nc: int, sum_dp: int, want_ends: bool):
         """Counters from the device sums and one native call for the
         mapping sort, traceback and SAM formatting: (SAM blob of the covered
         reads in read order, per-read end offsets into it or None, stats).
-        Drain threads call it side by side: the native call releases the
+        `hits` are `accepted_hits`' arrays over lanes [0, 2B) (B >= the
+        batch's reads: a grid pads it), `fb` the (B,) fallback bits. Drain
+        threads call it side by side: the native call releases the
         interpreter lock."""
         n = batch.num_reads
         stats = MappingStats(
-            num_candidates=host["sum_nc"],
-            num_candidates_without_additional_qgram_filter=host["sum_dp"],
+            num_candidates=sum_nc, num_candidates_without_additional_qgram_filter=sum_dp,
         )
-        k = host["n_accepted"]
-        a_lane = host["a_lane"][:k]
-        read_id = a_lane % n
+        a_lane, a_sid, a_pos, a_ed, a_end = hits
+        read_id = a_lane % B
         # Generation order per read: + strand then - strand, each ascending
         # (src/map.c:29-49); a stable sort by read id keeps exactly that.
         order = np.argsort(read_id, kind="stable")
-        order = order[~host["fb"][read_id[order]]]  # fallback reads re-map
+        order = order[~fb[read_id[order]]]  # fallback reads re-map
         read_id = read_id[order]
-        map_counts = np.bincount(read_id, minlength=n).astype(np.int32)
+        map_counts = np.bincount(read_id, minlength=B)[:n].astype(np.int32)
         stats.num_mappings = int(map_counts.sum())
         stats.num_mapped_reads = int((map_counts > 0).sum())
         res = self._native.emit(
             batch,
             map_counts,
-            (a_lane[order] >= n).astype(np.uint8),
-            host["a_ed"][:k][order].astype(np.uint8),
-            host["a_sid"][:k][order].astype(np.int32),
-            host["a_pos"][:k][order].astype(np.int64),
-            host["a_end"][:k][order].astype(np.int32),
+            (a_lane[order] >= B).astype(np.uint8),
+            a_ed[order].astype(np.uint8),
+            a_sid[order].astype(np.int32),
+            a_pos[order].astype(np.int64),
+            a_end[order].astype(np.int32),
             want_read_ends=want_ends,
         )
         blob, ends = res if want_ends else (res, None)
@@ -664,8 +953,11 @@ class MappingEngine:
         is raised to the consumer and ends the stream."""
         depth = depth or self.config.pipeline_depth
         pool: list = []
-        self._retry_pool = None if ordered else pool
-        retry_B = self._tier(1).batch_size if self.tiers and not ordered else 0
+        # Across processes every drain issues collectives (row gathers,
+        # bitmaps, tier dispatches): drains run on this, the consumer,
+        # thread in stream order, and retries stay inside them.
+        self._retry_pool = None if (ordered or self._cross) else pool
+        retry_B = self._tier(1).batch_size if self._retry_pool is not None and self.tiers else 0
         self.consumed_reads = 0  # stream position of the last consumed item
 
         def consume(item):
@@ -701,10 +993,15 @@ class MappingEngine:
                             rb, tier=1, origins=[r[0] for r in take])
                         q.append(ex.submit(self._drain_stream, pending))
 
+                def drain_later(pending):
+                    if self._cross:
+                        return _Later(self._drain_stream, pending)
+                    return ex.submit(self._drain_stream, pending)
+
                 for batch in batches:
                     if not batch.num_reads:
                         continue
-                    q.append(ex.submit(self._drain_stream, self.submit_batch(batch)))
+                    q.append(drain_later(self.submit_batch(batch)))
                     if retry_B:
                         flush_retries(retry_B)
                     while len(q) > depth:
@@ -716,3 +1013,36 @@ class MappingEngine:
                         flush_retries(1)
         finally:
             self._retry_pool = None
+
+
+class _Later:
+    """A future run when its result is read, on the reading thread."""
+
+    def __init__(self, fn, *args):
+        self._fn, self._args = fn, args
+
+    def result(self):
+        return self._fn(*self._args)
+
+
+def _splice(blob: bytes, ends, replaced: dict, per_read: bool) -> list:
+    """Records of a batch: the emitter's blob holds the covered reads'
+    records in read order and nothing for a fallback read (ends[r] is read
+    r's end in it, None when not asked for); `replaced` maps a read to its
+    records from elsewhere. One record list per read with `per_read`, else
+    record chunks in read order."""
+    if ends is None:
+        return [blob] if blob else []
+    starts = np.concatenate([[0], ends[:-1]])
+    if per_read:
+        segs = [[blob[a:b]] if b > a else [] for a, b in zip(starts.tolist(), ends.tolist())]
+        for i, recs in replaced.items():
+            segs[i] = recs
+        return segs
+    chunks, prev = [], 0
+    for i in sorted(replaced):  # cut the blob only where records go in
+        chunks.append(blob[prev : int(starts[i])])
+        chunks.extend(replaced[i])
+        prev = int(ends[i])
+    chunks.append(blob[prev:])
+    return [c for c in chunks if c]

@@ -97,10 +97,7 @@ def test_bad_commands_return_1(argv):
     assert jcli.main(argv) == 1
 
 
-@pytest.mark.parametrize("flag", [
-    ["--cap-vote", "32"], ["--no-warm-shadow"], ["--coordinator", "localhost:1"],
-    ["--local-devices", "1"], ["--index-shards", "2"],
-])
+@pytest.mark.parametrize("flag", [["--cap-vote", "32"], ["--no-warm-shadow"]])
 def test_left_out_flags_are_rejected(flag):
     with pytest.raises(SystemExit) as exc:
         cli.main(["map", "--ref", "x", "--index", "y", "--read1", "z", "-o", "w", *flag])

@@ -272,3 +272,30 @@ def test_pipelined_engine_with_tiers_on_cuda_matches_golden(cuda, tmp_path, orde
     tail_shapes = kernels.launches_by_shape()["filter_tail"]
     assert tail_shapes[(32, 32)] == 6
     assert sum(tail_shapes.get((t.cap_occ, t.cap_cand), 0) for t in TIERS) == engine.tier_dispatches
+
+
+@pytest.mark.parametrize("grid", ["data_2", "index_1x2", "index_2x2"])
+def test_grid_on_cuda_matches_golden(cuda, small_reference, small_index, default_args, grid):
+    """Grids whose every cell is this card (parallel/): a data grid of 2,
+    and coordinate-sharded (data, index) grids; each cell launches both
+    kernels once a batch."""
+    from fem_tpu_torch.parallel.mesh import make_index_mesh, make_mesh
+
+    seqs, ref = small_reference
+    devs = ["cuda:0"] * (2 if grid == "data_2" else int(grid[-3]) * int(grid[-1]))
+    kw = ({"mesh": make_mesh(devs)} if grid == "data_2"
+          else {"index_mesh": make_index_mesh(devs, int(grid[-1]))})
+    engine = MappingEngine(default_args, ref, small_index,
+                           EngineConfig(batch_size=64, cap_occ=80, cap_cand=16,
+                                        verify_per_read=8, **kw))
+    reads = sim.simulate_reads(seqs, 64, read_length=100, max_errors=2, seed=36)
+    reads[0] = sim.SimulatedRead(b"rep", seqs[0][1][10_060:10_160], b"I" * 100, 0, 10_060, 0, 0)
+    batch = _batch(reads)
+    kernels.reset_launches()
+    recs, stats = engine.map_batch(batch)
+    grecs, gstats = GoldenMapper(default_args, ref, small_index).map_reads(
+        batch.names, batch.seqs, batch.quals)
+    assert b"".join(recs) == b"".join(grecs)
+    assert dataclasses.asdict(stats) == dataclasses.asdict(gstats)
+    cells = len(devs)
+    assert kernels.launches["filter_tail"] >= cells and kernels.launches["banded_myers"] >= cells

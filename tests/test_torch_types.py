@@ -63,6 +63,8 @@ def test_port_imports_without_jax(tmp_path):
     code = (
         "import sys\n"
         "import fem_tpu_torch.pipeline.engine, fem_tpu_torch.kernels\n"
+        "import fem_tpu_torch.parallel.mesh, fem_tpu_torch.parallel.sharded_index\n"
+        "import fem_tpu_torch.parallel.multihost, fem_tpu_torch.pipeline.cli\n"
         "import chip_smoke\n"
         "from fem_tpu_torch import sim\n"
         "from fem_tpu_torch.config import FemArgs\n"
@@ -77,6 +79,12 @@ def test_port_imports_without_jax(tmp_path):
         "                       EngineConfig(batch_size=16), device='cpu')\n"
         "recs, stats = engine.map_batch(next(fastx.stream_fastq_batches('reads.fq', 16)))\n"
         "assert stats.num_reads == 16 and stats.num_mapped_reads > 0, stats\n"
+        "from fem_tpu_torch.parallel.mesh import make_index_mesh\n"
+        "grid = make_index_mesh(['cpu'] * 2, 2)\n"
+        "engine = MappingEngine(FemArgs(), ref, build_index(ref, 12, 3),\n"
+        "                       EngineConfig(batch_size=16, index_mesh=grid), device='cpu')\n"
+        "recs2, stats2 = engine.map_batch(next(fastx.stream_fastq_batches('reads.fq', 16)))\n"
+        "assert b''.join(recs2) == b''.join(recs) and stats2 == stats, stats2\n"
         "bad = [m for m in sys.modules if m in ('jax', 'fem_tpu')"
         " or m.startswith(('jax.', 'fem_tpu.'))]\n"
         "assert not bad, bad\n"
@@ -101,6 +109,9 @@ def test_port_sources_name_no_fem_tpu_import():
     for root, _, names in os.walk(os.path.join(_REPO, "fem_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 20
+    parallel = os.path.join(_REPO, "fem_tpu_torch", "parallel")
+    for name in ("mesh.py", "sharded_index.py", "multihost.py"):
+        assert os.path.join(parallel, name) in files, name
     bad = [f for f in files if pat.search(open(f).read())]
     assert not bad, bad
 
