@@ -46,14 +46,26 @@ exits non-zero without its result line:
                            ladder's own path. Reads must be retried, the
                            filter tail must launch above cap_cand +
                            cap_occ = 512, and tier 2 must be reached.
-              In each the kernels must have launched (counts set to 0
-              before the run and read after it; a row's launches are the
-              wrapper's own count at that row's shape), and the SAM record
-              multiset and the five counters must equal fem_baseline's on
-              the same reads. Each point is then mapped again for its
-              steady rates, and once under torch.profiler for the device's
-              busy and idle share of the wall; every such run must give
-              the counted run's records. Last, the benign reads go once
+              The step runs as one CUDA graph per (tier, Lmax): first one
+              eager tier-0 dispatch with every host sync an error
+              (torch.cuda.set_sync_debug_mode), then the counted run, in
+              which each key's first dispatch runs eagerly and is then
+              captured and every later one replays the graph; a line
+              names the keys, each capture's time, each graph's memory
+              and replays, and every dispatch must have gone through
+              them. In each the kernels must have launched (counts set
+              to 0 before the run and read after it; a replay counts the
+              launches its capture recorded, so one launch of each kernel
+              a dispatch; a row's launches are the wrappers' count at that
+              row's shape), and the SAM record multiset and the five
+              counters must equal fem_baseline's on the same reads. Each
+              point is then mapped again for its steady rates, once under
+              torch.profiler for the device's busy and idle share of the
+              wall (printed only if the trace holds the replays' kernels),
+              and once with the eager step (engine.eager_step) and a
+              StageTimer: its per-stage device times and its submit_batch
+              times beside the graphs'; every such run must give the
+              counted run's records. Last, the benign reads go once
               through an engine without a ladder (tiers=()), read from
               the FASTQ file by a ThreadedBatchSource: its overflow reads
               must reach the host mapper and its records must be the
@@ -62,8 +74,8 @@ exits non-zero without its result line:
               first tier-0 calls and the first tier-1 filter-tail call of
               the benign stream; the first tier-0, tier-1 and tier-2
               calls of the adversarial one), captured while the stream is
-              mapped once
-              more after the timed and counted runs: equal to the plain
+              mapped once more with the eager step (a replay calls no
+              wrapper) after the timed and counted runs: equal to the plain
               version, then timed warm and cold like phase 4. On the main
               path the slabs were written just before the kernel runs, so
               the warm number is the nearer one there.
@@ -109,6 +121,19 @@ exits non-zero without its result line:
               2), banded Myers at 16,384 slots over 32,768 lanes, on
               synthetic inputs and replayed on a (1, 4) shard's own (for
               Myers, a shard whose reference slice has negative offsets).
+              Grids run their cells eagerly.
+  10. configs the parameter sweep of tests/test_config_matrix.py (e=7 a=2,
+              e=0, e=5 a=0, k=10 step=5, 148 bp reads, 76 bp at step 2)
+              and the soak's e=7 150 bp line (Lmax 160, the widest band),
+              on the benign point's genome: 20,000 reads each (one full
+              tier-0 batch and one padded batch of 3,616) through the
+              pipelined stream and the step graphs, with the benign
+              point's caps and the default ladder; records and counters
+              == fem_baseline (64-bit counters: outside FEM's step bound,
+              e7_a2 and len76_step2, no read maps and the pre-filter
+              counter passes 2^32); retried reads, dispatches by tier,
+              host-mapped reads, the keys captured and their capture
+              times printed.
 
 Each kernel's bound is the least time the card could take for the same
 inputs: the bytes it must move (inputs once, outputs once) over 3.35 TB/s,
@@ -851,16 +876,19 @@ def _log_run(tag: str, what: str, run: dict) -> None:
 _BASELINE: dict = {}  # reads file -> fem_baseline's (digest, counters)
 
 
-def baseline_check(tag: str, paths: dict, run: dict) -> None:
+def baseline_check(tag: str, paths: dict, run: dict, e: int = E, a: int = A,
+                   num_reads: int = NUM_READS) -> list[int]:
     """The oracle: fem_baseline (byte-identical to the reference binary) on
-    the same reads; record multiset and counters must be equal."""
+    the same reads; record multiset and counters must be equal. Returns
+    the counters. fem_baseline counts in uint64_t; so do MappingStats'
+    Python ints and the device's int64 sums."""
     from fem_tpu_torch.native.build import build_baseline
 
     t0 = time.perf_counter()
     if paths["fq"] not in _BASELINE:  # fem_baseline once a point
         sam = os.path.join(os.path.dirname(paths["fq"]), "baseline.sam")
         p = subprocess.run(
-            [build_baseline(), "map", "-e", str(E), "-a", str(A), "-t", "1",
+            [build_baseline(), "map", "-e", str(e), "-a", str(a), "-t", "1",
              "--ref", paths["fa"], "--index", paths["ix"], "--read1", paths["fq"],
              "-o", sam], check=True, capture_output=True, text=True)
         with open(sam, "rb") as f:
@@ -877,7 +905,8 @@ def baseline_check(tag: str, paths: dict, run: dict) -> None:
     check(got_cnt == want_cnt and got_dig == want_dig,
           f"{tag}: SAM record multiset differs from fem_baseline")
     check(got_counters == want_counters, f"{tag}: counters differ from fem_baseline")
-    check(total.num_reads == NUM_READS, f"{tag}: not every read was mapped")
+    check(total.num_reads == num_reads, f"{tag}: not every read was mapped")
+    return got_counters
 
 
 def phase_main(tag: str, ref, index, paths, config, dev, turns: tuple,
@@ -909,25 +938,23 @@ def phase_main(tag: str, ref, index, paths, config, dev, turns: tuple,
         f"{t1.cap_occ} + {t1.cap_cand}, tier 2 {t2.batch_size} reads at "
         f"{t2.cap_occ} + {t2.cap_cand}")
     probe = Probe(engine)
+    sync_free_dispatch(tag, engine, batches[0])
 
-    # The counted run: counts to 0 just before, read just after.
-    engine.stage_timer = StageTimer(torch.device(dev))
+    # The counted run, through the step graphs: counts to 0 just before,
+    # read just after. Each key's first dispatch runs eagerly (its launches
+    # are counted as they happen) and is then captured; every later
+    # dispatch replays the graph and counts the launches the capture
+    # recorded. So one launch of each kernel a dispatch, as before.
     torch.cuda.reset_peak_memory_stats(dev)
     run = run_engine(engine, probe, batches, "stream")
-    timer, engine.stage_timer = engine.stage_timer, None
     peak = torch.cuda.max_memory_allocated(dev)
-    _log_run(tag, "pipelined stream, first run (cold start in it)", run)
+    _log_run(tag, "pipelined stream through the step graphs, first run (the graphs' "
+             "captures and the cold start in it)", run)
     log(f"[main] {tag}: kernel launches {run['launches']}; filter_tail launches by "
         f"(cap_occ, cap_cand) {run['tail_shapes']}; banded_myers launches by (slots, "
         f"lanes) {run['myers_shapes']}; peak device memory {peak / 2**30:.3f} GiB")
-    for tier, ms in timer.ms.items():
-        log(f"[main] {tag}: device stage ms over {timer.batches[tier]} "
-            f"{'tier-0' if tier == 0 else 'retry-tier'} batches: "
-            f"{ {k: round(v, 3) for k, v in ms.items()} }")
-    for tier, secs in sorted(run["submit_s"].items()):
-        log(f"[main] {tag}: submit_batch at tier {tier} on its thread: first "
-            f"{secs[0] * 1e3:.1f} ms, median {statistics.median(secs) * 1e3:.1f} ms "
-            f"over {len(secs)}")
+    run["graphs"] = check_graphs(tag, engine, len(batches) + run["dispatches"])
+    _log_submits(tag, "first run through the graphs (captures in it)", run)
     check(all(n > 0 for n in run["launches"].values()),
           f"{tag}: a kernel of the main path never launched")
     check(run["launches"]["filter_tail"] == run["launches"]["banded_myers"]
@@ -943,12 +970,36 @@ def phase_main(tag: str, ref, index, paths, config, dev, turns: tuple,
         _log_run(tag, "steady, " + ("pipelined stream" if mode == "stream"
                                     else "one batch at a time"), again)
         run.setdefault("steady_" + mode, []).append(again["reads_per_s"])
+        if mode == "stream":
+            _log_submits(tag, "steady pipelined run through the graphs", again)
     _profiled_run(tag, engine, probe, batches, run["digest"])
 
+    # The eager step (engine.eager_step, the counterpart of
+    # jax.disable_jit()): the StageTimer's per-stage events lie inside the
+    # step, so it times the eager path; its submit times and rate are the
+    # graphs' baseline in this call.
+    engine.eager_step = True
+    engine.stage_timer = StageTimer(torch.device(dev))
+    eager = run_engine(engine, probe, batches, "stream")
+    timer, engine.stage_timer = engine.stage_timer, None
+    engine.eager_step = False
+    check(eager["digest"] == run["digest"] and eager["stats"] == run["stats"],
+          f"{tag}: the eager step gave other records or counters")
+    _log_run(tag, "steady, pipelined stream with the eager step (StageTimer on)", eager)
+    _log_submits(tag, "eager step", eager)
+    for tier, ms in timer.ms.items():
+        log(f"[main] {tag}: device stage ms over {timer.batches[tier]} "
+            f"{'tier-0' if tier == 0 else 'retry-tier'} batches (eager step): "
+            f"{ {k: round(v, 3) for k, v in ms.items()} }")
+    run["eager_reads_per_s"] = eager["reads_per_s"]
+
     # The kernels' inputs, for phase 6: the stream is mapped once more,
-    # outside the timed and counted runs above.
+    # outside the timed and counted runs above, with the eager step (a
+    # replay calls no wrapper, so none could be seen).
     probe.capture = capture
+    engine.eager_step = True
     again = run_engine(engine, probe, batches, "stream")
+    engine.eager_step = False
     check(again["digest"] == run["digest"],
           f"{tag}: the stream mapped again for capture gave other records")
     check(set(probe.captured) == set(capture),
@@ -958,6 +1009,47 @@ def phase_main(tag: str, ref, index, paths, config, dev, turns: tuple,
         del engine
         _no_ladder_run(tag, args, ref, index, paths, config, run)
     return run, probe.captured
+
+
+def sync_free_dispatch(tag: str, engine, batch) -> None:
+    """One eager tier-0 dispatch with every host sync an error
+    (torch.cuda.set_sync_debug_mode): a graph captures no host read."""
+    engine.eager_step = True
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pending = engine.submit_batch(batch)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    engine.drain_batch(pending)  # its retries eager too: no graph before the counted run
+    engine.eager_step = False
+    log(f"[main] {tag}: one eager tier-0 dispatch under set_sync_debug_mode('error'): "
+        f"no host sync in the step")
+
+
+def check_graphs(tag: str, engine, dispatches: int) -> dict:
+    """Every step program of the engine captured, and its dispatches (the
+    eager first one and the replays) adding up to `dispatches`; one line
+    names the keys, their capture times and graph memory. Returns them."""
+    progs = engine.programs
+    check(progs and all(p.graph is not None for p in progs.values()),
+          f"{tag}: a step program was not captured")
+    check(sum(1 + p.replays for p in progs.values()) == dispatches,
+          f"{tag}: {dispatches} dispatches, not all through the step programs")
+    info = {str(k): {"capture_s": p.capture_s, "replays": p.replays,
+                     "graph_MiB": p.pool_bytes / 2**20} for k, p in sorted(progs.items())}
+    log(f"[main] {tag}: through the step graphs, keys (tier, Lmax) captured "
+        f"{sorted(progs)}: " + "; ".join(
+            f"{k} capture {v['capture_s'] * 1e3:.1f} ms, graph memory {v['graph_MiB']:.1f} "
+            f"MiB, {v['replays']} replays" for k, v in info.items()))
+    return info
+
+
+def _log_submits(tag: str, what: str, run: dict) -> None:
+    for tier, secs in sorted(run["submit_s"].items()):
+        log(f"[main] {tag}: submit_batch at tier {tier} on its thread, {what}: first "
+            f"{secs[0] * 1e3:.2f} ms, median {statistics.median(secs) * 1e3:.2f} ms "
+            f"over {len(secs)}")
 
 
 def _no_ladder_run(tag: str, args, ref, index, paths, config, counted: dict) -> None:
@@ -999,13 +1091,23 @@ def _profiled_run(tag: str, engine, probe, batches, digest) -> None:
     check(again["digest"] == digest, f"{tag}: the profiled run gave other records")
     events = [(ev.key, getattr(ev, "device_time_total", None)
                or getattr(ev, "cuda_time_total", 0), ev.count) for ev in prof.key_averages()]
-    busy_ms = sum(t for _, t, _ in events) / 1e3
     wall_ms = again["seconds"] * 1e3
+    # The run replays graphs: the idle share means something only if the
+    # trace holds the kernels the replays launched.
+    ours = {k: c for k, _, c in events if "filter_tail" in k or "banded_myers" in k}
+    replayed = sum(ours.values())
+    if replayed < 2 * again["launches"]["filter_tail"]:
+        log(f"[main] {tag} profiled pipelined run: wall {wall_ms:.1f} ms; the profiler saw "
+            f"{replayed} of the {2 * again['launches']['filter_tail']} kernel launches the "
+            f"graph replays made ({ours}): device idle share not measured")
+        return
+    busy_ms = sum(t for _, t, _ in events) / 1e3
     top = sorted(events, key=lambda x: -x[1])[:6]
-    log(f"[main] {tag} profiled pipelined run: wall {wall_ms:.1f} ms "
+    log(f"[main] {tag} profiled pipelined run through the graphs: wall {wall_ms:.1f} ms "
         f"({again['reads_per_s']:,.1f} reads/s under the profiler), device busy "
         f"{busy_ms:.1f} ms over {sum(c for _, _, c in events)} kernels and copies, idle "
-        f"{1 - busy_ms / wall_ms:.1%} of the wall; largest: "
+        f"{1 - busy_ms / wall_ms:.1%} of the wall; the replays' kernels seen: "
+        + ", ".join(f"{k[:60]} x{c}" for k, c in ours.items()) + "; largest: "
         + "; ".join(f"{k[:48]} {t / 1e3:.2f} ms x{c}" for k, t, c in top))
 
 # Phase 7's tuning flags: the benign point's EngineConfig on the command line.
@@ -1391,6 +1493,89 @@ def phase_parallel(workdir: str, benign_paths: dict, adv_paths: dict,
     return rows, runs
 
 
+# Phase 10: the parameter sweep of tests/test_config_matrix.py:31-40 and the
+# soak's e=7 150 bp line (docs/SOAK.md): name, k, step, e, a, read length,
+# and the most errors a simulated read carries (the sweep's min(e, 3); e=7
+# at 150 bp carries up to 7, as the soak's reads do).
+SWEEP = (("e7_a2", 12, 3, 7, 2, 100, 3), ("e0", 12, 3, 0, 1, 100, 0),
+         ("e5_a0", 12, 3, 5, 0, 100, 3), ("k10_step5", 10, 5, 3, 1, 100, 3),
+         ("len148", 12, 3, 2, 1, 148, 2), ("len76_step2", 12, 2, 4, 1, 76, 3),
+         ("e7_len150", 12, 3, 7, 2, 150, 7))
+SWEEP_READS = 20_000  # one full tier-0 batch and one padded one of 3,616
+
+
+def phase_configs(workdir: str, seqs, benign_paths: dict) -> dict:
+    """Phase 10: each configuration of SWEEP on the benign point's 46 Mb
+    genome, 20,000 reads through the pipelined stream with the default
+    ladder and the benign point's caps, through the step graphs; records
+    and the five counters == fem_baseline. FEM's step bound, step <=
+    L/(e+2) - k + 1, holds for none of the reads of e7_a2 and len76_step2:
+    no read maps there, and their pre-filter counter passes 2^32."""
+    from fem_tpu_torch import sim
+    from fem_tpu_torch.config import FemArgs
+    from fem_tpu_torch.index.build import build_index
+    from fem_tpu_torch.index.storage import load_index, save_index
+    from fem_tpu_torch.io import fastx
+    from fem_tpu_torch.pipeline.engine import EngineConfig, MappingEngine
+
+    t_phase = time.perf_counter()
+    ref = fastx.read_fasta(benign_paths["fa"])
+    indexes = {(KMER, STEP): (load_index(benign_paths["ix"]), benign_paths["ix"])}
+    out = {}
+    for name, k, step, e, a, length, max_errors in SWEEP:
+        t0 = time.perf_counter()
+        d = os.path.join(workdir, "configs", name)
+        os.makedirs(d)
+        if (k, step) not in indexes:
+            ix = os.path.join(d, "ref.index")
+            index = build_index(ref, k, step)
+            save_index(index, ix)
+            indexes[k, step] = (index, ix)
+        index, ix = indexes[k, step]
+        paths = {"fa": benign_paths["fa"], "ix": ix, "fq": os.path.join(d, "reads.fq")}
+        sim.write_fastq(paths["fq"], sim.simulate_reads(
+            seqs, SWEEP_READS, read_length=length, max_errors=max_errors, seed=24))
+        batches = list(fastx.stream_fastq_batches(paths["fq"], batch_size=BATCH))
+        engine = MappingEngine(
+            FemArgs(kmer_size=k, step_size=step, error_threshold=e, num_additional_qgrams=a),
+            ref, index, EngineConfig(batch_size=BATCH, cap_occ=80, cap_cand=16,
+                                     verify_per_read=2, accept_per_read=0.85))
+        probe = Probe(engine)
+        setup_s = time.perf_counter() - t0
+        run = run_engine(engine, probe, batches, "stream")
+        probe.close()
+        tag = f"configs {name}"
+        _log_run(tag, f"k={k} step={step} e={e} a={a}, {length} bp reads (Lmax "
+                 f"{sorted({b.codes.shape[1] for b in batches})}), batches of "
+                 f"{[b.num_reads for b in batches]} padded to {BATCH}", run)
+        graphs = check_graphs(tag, engine, len(batches) + run["dispatches"])
+        check(run["launches"]["filter_tail"] == run["launches"]["banded_myers"]
+              == len(batches) + run["dispatches"], f"{tag}: not one launch of each kernel "
+              f"a dispatch: {run['launches']}")
+        counters = baseline_check(tag, paths, run, e=e, a=a, num_reads=SWEEP_READS)
+        in_bound = step <= length // (e + 2) - k + 1
+        tiers = collections.Counter(
+            t for t, secs in run["submit_s"].items() for _ in secs if t > 0)
+        log(f"[configs] {name}: {'inside' if in_bound else 'outside'} the step bound; "
+            f"mapped reads {counters[1]} of {SWEEP_READS}; retried {run['retried']} "
+            f"(dispatches by tier {dict(sorted(tiers.items()))}), host-mapped "
+            f"{run['fallback']}; pre-filter counter {counters[2]:,} "
+            f"({'above' if counters[2] >= 2**32 else 'below'} 2^32); set-up "
+            f"{setup_s:.1f} s, first item after {run['first_s']:.3f} s with the captures "
+            f"of {sorted(graphs)} in it")
+        if not in_bound:
+            check(counters[1] == 0, f"{tag}: a read mapped outside the step bound")
+        else:
+            check(counters[1] > 0, f"{tag}: no read mapped inside the step bound")
+        out[name] = {"counters": counters, "retried": run["retried"],
+                     "dispatches": run["dispatches"], "fallback": run["fallback"],
+                     "graphs": graphs, "reads_per_s": run["reads_per_s"]}
+        del engine, probe, batches
+        torch.cuda.empty_cache()
+    log(f"[configs] phase 10: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main() -> int:
     from fem_tpu_torch.pipeline.engine import EngineConfig
 
@@ -1398,7 +1583,8 @@ def main() -> int:
     dev = "cuda:0"
     phase_build()
     with tempfile.TemporaryDirectory() as workdir:
-        ref, index, paths = phase_setup(workdir, "benign", benign_genome(), read_seed=9)
+        benign_seqs = benign_genome()
+        ref, index, paths = phase_setup(workdir, "benign", benign_seqs, read_seed=9)
         benign_paths = paths
         rows = phase_kernels(ref, index, dev)
         is_tail = lambda attr, a, shape: attr == "filter_tail" and (a[0].shape[2], a[2]) == shape
@@ -1439,6 +1625,7 @@ def main() -> int:
         phase_bench()
         grid_rows, grid_runs = phase_parallel(workdir, benign_paths, adv_paths,
                                               adversarial["fallback"], dev)
+        phase_configs(workdir, benign_seqs, benign_paths)
     rows += grid_rows
     check(adversarial["retried"] > 0, "adversarial: no read was retried")
     check(any(cap + cc > 512 for cap, cc in adversarial["tail_shapes"]),

@@ -15,12 +15,16 @@ launches by the shape they were made at; each wrapper calls `count_launch`
 where it launches its kernel, and nowhere else, so a run can show that its
 main path went through the kernels and at which widths. The counts are
 taken under a lock: the engine's drain threads launch retry batches beside
-the submitting thread.
+the submitting thread. A CUDA graph launches its kernels at every replay
+but runs their wrappers once, at capture: `recording_launches` takes the
+capturing thread's counts aside (the capture launches nothing), and
+`add_launches` adds them once a replay.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import glob
 import os
@@ -45,6 +49,7 @@ launch_shapes = {k: collections.Counter() for k in launches}
 
 _lock = threading.Lock()
 _count_lock = threading.Lock()
+_recording = threading.local()  # .launches: a capture's Counter, on its thread
 _lib = None
 
 _P = ctypes.c_void_p
@@ -60,9 +65,35 @@ def reset_launches() -> None:
 
 
 def count_launch(name: str, shape: tuple) -> None:
+    rec = getattr(_recording, "launches", None)
+    if rec is not None:  # inside a capture on this thread: nothing ran
+        rec[name, shape] += 1
+        return
     with _count_lock:
         launches[name] += 1
         launch_shapes[name][shape] += 1
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Within: this thread's `count_launch` calls go to the yielded
+    Counter of (kernel, shape) -> launches instead of the counts. Other
+    threads count as before."""
+    rec = collections.Counter()
+    _recording.launches = rec
+    try:
+        yield rec
+    finally:
+        _recording.launches = None
+
+
+def add_launches(recorded: collections.Counter) -> None:
+    """Count one replay of a captured program: the launches its capture
+    recorded."""
+    with _count_lock:
+        for (name, shape), n in recorded.items():
+            launches[name] += n
+            launch_shapes[name][shape] += n
 
 
 def launches_by_shape() -> dict:

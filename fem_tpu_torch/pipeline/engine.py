@@ -12,13 +12,17 @@ capacities), and past the last rung by the exact host mapper; a read that
 hits an inherent limit (incomplete DP) goes to the host mapper at once.
 So the ALL-mappings guarantee survives fixed capacities.
 
-`map_stream` keeps `depth` batches in flight: the device step of every
-batch runs on the engine's one CUDA stream and ends in a non-blocking copy
-of the packed result into pinned host memory, followed by a recorded
-event; drain threads wait on that event only, then emit. In the unordered
-stream capacity-overflow reads gather in a retry pool and go out again as
-pipelined tier-1 batches; `watermark_reads` is the longest stream prefix
-whose records the consumer has had, retries included.
+On one device the step runs as a `StepProgram` per (tier, Lmax), the
+counterpart of fem_tpu's one `jax.jit` program per shape: every batch is
+padded to its tier's batch size and goes up as one packed buffer, and on
+a card the step is one replay of a CUDA graph captured at the key's first
+dispatch. `map_stream` keeps `depth` batches in flight: the device step of
+every batch runs on the engine's one CUDA stream and ends in a
+non-blocking copy of the packed result into pinned host memory, followed
+by a recorded event; drain threads wait on that event only, then emit. In
+the unordered stream capacity-overflow reads gather in a retry pool and go
+out again as pipelined tier-1 batches; `watermark_reads` is the longest
+stream prefix whose records the consumer has had, retries included.
 
 On a grid (`EngineConfig.mesh`: reads over a data axis; `.index_mesh`:
 also the index split by coordinate over an index axis), each cell maps its
@@ -31,10 +35,10 @@ same collectives in the same order.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import os
 import threading
+import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Iterable, Iterator, List, NamedTuple, Tuple
@@ -43,6 +47,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from fem_tpu_torch import kernels
 from fem_tpu_torch.config import FemArgs
 from fem_tpu_torch.core.encoding import encode
 from fem_tpu_torch.index.storage import FemIndex
@@ -198,7 +203,9 @@ def map_core_steps(
     order = torch.cumsum(flat_valid, 0) - 1
     total = flat_valid.sum()
     to_slab = flat_valid & (order < verify_cap)
-    lane_of = torch.arange(NB, device=codes.device, dtype=torch.int32).repeat_interleave(CC)
+    # Each slot's lane, without repeat_interleave (which may size its
+    # output with a host read, and a CUDA graph captures no host read).
+    lane_of = (torch.arange(NB * CC, device=codes.device) // CC).int()
     v_lane = _scatter(verify_cap, order, to_slab, lane_of)
     v_sid = _scatter(verify_cap, order, to_slab, cand.cand_sid.reshape(-1))
     v_pos = _scatter(verify_cap, order, to_slab, cand.cand_pos.reshape(-1))
@@ -271,6 +278,29 @@ def pack_result(out: dict) -> torch.Tensor:
     return torch.cat(parts)
 
 
+def pack_input(codes: np.ndarray, lengths: np.ndarray, batch_size: int) -> np.ndarray:
+    """One batch as its (batch_size, Lmax + 4) uint8 upload, fem_tpu's
+    `packed_in` (fem_tpu/pipeline/engine.py:759-768): a row holds a read's
+    codes, then its length as 4 little-endian bytes; the rows past the
+    batch's reads are empty reads (codes 4, length 0)."""
+    n, Lmax = codes.shape
+    if n > batch_size:
+        raise ValueError(f"{n} reads do not fit a batch of {batch_size}")
+    packed = np.full((batch_size, Lmax + 4), 4, np.uint8)
+    packed[:n, :Lmax] = codes
+    packed[:, Lmax:] = 0
+    packed[:n, Lmax:] = np.asarray(lengths[:n], "<i4").view(np.uint8).reshape(n, 4)
+    return packed
+
+
+def unpack_input(packed: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`pack_input`'s (B, Lmax) codes (a view) and (B,) int32 lengths, on
+    the packed tensor's device."""
+    lb = packed[:, -4:].int()
+    lengths = lb[:, 0] | (lb[:, 1] << 8) | (lb[:, 2] << 16) | (lb[:, 3] << 24)
+    return packed[:, :-4], lengths
+
+
 def unpack_result(flat: np.ndarray, acc_cap: int, num_reads: int, nseg: int = 1) -> dict:
     """`pack_result`'s layout on the host: `flat` holds `nseg` segments
     (a grid's cells, data-row-major), each of `num_reads` reads. The header
@@ -315,7 +345,9 @@ class StageTimer:
     tier 0 under `ms[0]`, all retry tiers together under `ms[1]`. A batch's
     events travel with it from `begin` to `collect`, so batches in flight
     do not mix; retry batches submitted from drain threads share the
-    stream, so their kernels can fall between a tier-0 batch's events."""
+    stream, so their kernels can fall between a tier-0 batch's events. A
+    graph's replay has no stage edges: it times the eager step
+    (`MappingEngine.eager_step`)."""
 
     def __init__(self, device: torch.device):
         self.device = device
@@ -343,6 +375,105 @@ class StageTimer:
             self.batches[key] += 1
             for (_, a), (stage, b) in zip(events, events[1:]):
                 self.ms[key][stage] += a.elapsed_time(b)
+
+
+class StepProgram:
+    """The device step at one (tier, Lmax): the port of fem_tpu's
+    `_make_device_fn` (fem_tpu/pipeline/engine.py:363-378), one per key
+    like its `_fn_for` (:703-707). Its body decodes the packed input
+    (`pack_input`), runs map_core and packs the result (`pack_result`).
+
+    On a card the body is captured once into a CUDA graph over a static
+    input and output, in a memory pool of its own. A dispatch copies the
+    packed batch into the input, replays the graph and copies the output
+    to fresh pinned host memory: three enqueues on the engine's stream,
+    under the program's lock so that dispatches from several threads do not
+    interleave. The first dispatch runs the body eagerly on the engine's
+    stream (the warm-up: the kernel library loads, the allocator fills, the
+    kernels launch and are counted as they are) and that is its result;
+    the capture follows, on a private stream, under the engine's capture
+    lock and in thread-local mode, so that drain threads waiting on their
+    events meanwhile do not break it. A capture or a replay that fails
+    raises: nothing falls back to the eager path. The capture runs every
+    wrapper once and launches nothing, so it records the launches
+    (`kernels.recording_launches`) and each replay adds them.
+
+    With `eager` (the engine's `eager_step`) and on the CPU, the body runs
+    eagerly at every dispatch, on the same padded, packed input."""
+
+    def __init__(self, key: tuple, index: DeviceIndex, params: FilterParams,
+                 verify_cap: int, accept_cap: int, device: torch.device,
+                 stream, capture_lock: threading.Lock):
+        self.key = key
+        self.index, self.params = index, params
+        self.verify_cap, self.accept_cap = verify_cap, accept_cap
+        self.device, self.stream, self._capture_lock = device, stream, capture_lock
+        self.lock = threading.Lock()
+        self.graph = None
+        self.static_in = self.static_out = None
+        self.launches = None  # Counter of (kernel, shape) a replay launches
+        self.capture_s = None  # seconds the capture took
+        self.pool_bytes = None  # device memory of the graph's pool, at its capture
+        self.replays = 0
+
+    def body(self, packed: torch.Tensor, mark=None) -> torch.Tensor:
+        codes, lengths = unpack_input(packed)
+        return pack_result(map_core(self.index, codes, lengths, self.params,
+                                    self.verify_cap, self.accept_cap, mark))
+
+    def run(self, packed: np.ndarray, eager: bool = False, timer=None):
+        """Dispatch one packed batch without waiting for it: (the result
+        on the host, the events a drain waits on, the StageTimer events)."""
+        if self.stream is None:  # the CPU
+            return self.body(torch.from_numpy(packed)), [], None
+        staged = torch.empty(packed.shape, dtype=torch.uint8, pin_memory=True)
+        staged.copy_(torch.from_numpy(packed))
+        events = None
+        with self.lock, torch.cuda.stream(self.stream):
+            if eager or self.graph is None:
+                inp = staged.to(self.device, non_blocking=True)
+                if timer is not None:
+                    events = timer.begin()
+                out = self.body(inp, (lambda st: timer.mark(events, st))
+                                if timer is not None else None)
+            else:
+                self.static_in.copy_(staged, non_blocking=True)
+                self.graph.replay()
+                self.replays += 1
+                kernels.add_launches(self.launches)
+                out = self.static_out
+            host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+            host.copy_(out, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record(self.stream)
+            if self.graph is None and not eager:
+                self._capture(inp)
+        return host, [ready], events
+
+    def _capture(self, static_in: torch.Tensor) -> None:
+        """Capture the body over `static_in` (the warm-up's input, which
+        the graph keeps)."""
+        with self._capture_lock:
+            t0 = time.perf_counter()
+            side = torch.cuda.Stream(self.device)
+            graph = torch.cuda.CUDAGraph()
+            try:
+                with kernels.recording_launches() as rec, torch.cuda.graph(
+                        graph, stream=side, capture_error_mode="thread_local"):
+                    out = self.body(static_in)
+            except Exception as exc:
+                raise RuntimeError(
+                    f"CUDA graph capture of the step at (tier, Lmax) = {self.key} "
+                    f"failed: {exc}") from exc
+            self.capture_s = time.perf_counter() - t0
+            self.pool_bytes = _pool_bytes(graph.pool())
+        self.graph, self.static_in, self.static_out, self.launches = graph, static_in, out, rec
+
+
+def _pool_bytes(pool) -> int:
+    """Device memory the caching allocator holds in `pool` (a graph's)."""
+    return sum(s["total_size"] for s in torch.cuda.memory_snapshot()
+               if tuple(s["segment_pool_id"]) == tuple(pool))
 
 
 class Pending(NamedTuple):
@@ -420,7 +551,15 @@ class MappingEngine:
         self._watermark_seq = 0
         self._watermark_reads = 0
         self.consumed_reads = 0
-        self.stage_timer: StageTimer | None = None  # one device only
+        self.stage_timer: StageTimer | None = None  # one device only; needs eager_step
+        # One device: the step programs by (tier, Lmax). `eager_step` runs
+        # their bodies eagerly on the card, the counterpart of
+        # jax.disable_jit(), for what a graph's replay never calls: the
+        # StageTimer's events and wrappers of the kernels' call sites.
+        self.programs: Dict[tuple, StepProgram] = {}
+        self.eager_step = False
+        self._programs_lock = threading.Lock()
+        self._capture_lock = threading.Lock()
 
     def _init_sharded_index(self, index: FemIndex) -> None:
         """Each cell's shard on its device, once per (device, shard)."""
@@ -525,6 +664,26 @@ class MappingEngine:
         n_dp, _ = self._mesh_shape()
         return -(-n // n_dp)
 
+    def _segment_reads(self, n: int, tier: int) -> int:
+        """Reads in one segment of an n-read dispatch's result: on one
+        device the tier's batch size (the step is padded to it), on a grid
+        a data row's share."""
+        return self._tier(tier).batch_size if self.grid is None else self._row_reads(n)
+
+    def _program(self, tier: int, Lmax: int) -> StepProgram:
+        """The step program of (tier, Lmax), made at its first use."""
+        key = (tier, Lmax)
+        with self._programs_lock:
+            prog = self.programs.get(key)
+            if prog is None:
+                tc = self._tier(tier)
+                params = FilterParams.from_args(
+                    self.args, Lmax, cap_occ=tc.cap_occ, cap_cand=tc.cap_cand)
+                prog = self.programs[key] = StepProgram(
+                    key, self.dindex, params, *self._caps(tc), self.device,
+                    self._stream, self._capture_lock)
+        return prog
+
     def _upload(self, array: np.ndarray, device: torch.device | None = None) -> torch.Tensor:
         """A host array on a device (the engine's by default): staged in
         pinned memory and copied without blocking the submitting thread
@@ -541,9 +700,12 @@ class MappingEngine:
         """Enqueue the device step of one batch and the copy of its result,
         without waiting for either; pair with `drain_batch`. `tier` selects
         the capacity rung: 0 = the config's own caps, >= 1 = the retry
-        ladder for reads that overflowed a smaller tier. Drain threads call
-        this too (retries), so it enters the engine's stream itself: the
-        current stream is per thread."""
+        ladder for reads that overflowed a smaller tier. On one device the
+        batch is padded to the tier's batch size and packed (`pack_input`;
+        the native reader's `packed` buffer as it is, where it has that
+        shape) and goes to the (tier, Lmax) step program. Drain threads call
+        this too (retries); the program enters the engine's stream itself:
+        the current stream is per thread."""
         tc = self._tier(tier)
         n = batch.num_reads
         if n > tc.batch_size:
@@ -552,33 +714,19 @@ class MappingEngine:
         if tier > 0:
             with self._fallback_lock:
                 self.tier_dispatches += 1
-        params = FilterParams.from_args(
-            self.args, batch.codes.shape[1], cap_occ=tc.cap_occ, cap_cand=tc.cap_cand,
-        )
+        Lmax = batch.codes.shape[1]
         if self.grid is not None:
+            params = FilterParams.from_args(
+                self.args, Lmax, cap_occ=tc.cap_occ, cap_cand=tc.cap_cand)
             flat, ready = self._submit_grid(batch, tc, params)
             return self._register_pending(batch, flat, ready, tier, origins, None)
-        verify_cap, accept_cap = self._caps(tc)
         timer = self.stage_timer
-        on_stream = (torch.cuda.stream(self._stream) if self._stream is not None
-                     else contextlib.nullcontext())
-        with on_stream:
-            codes = self._upload(batch.codes[:n])
-            lengths = self._upload(np.asarray(batch.lengths[:n], np.int32))
-            events = timer.begin() if timer is not None else None
-            out = map_core(
-                self.dindex, codes, lengths, params, verify_cap, accept_cap,
-                mark=(lambda stage: timer.mark(events, stage)) if timer is not None else None,
-            )
-            flat, ready = pack_result(out), []
-            if self._stream is not None:
-                # The copy stays on the compute stream (no cross-stream
-                # lifetime to track); the drain waits on the event only.
-                host = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
-                host.copy_(flat, non_blocking=True)
-                ready = [torch.cuda.Event()]
-                ready[0].record(self._stream)
-                flat = host
+        if timer is not None and self._stream is not None and not self.eager_step:
+            raise ValueError("a StageTimer times the eager step: set engine.eager_step")
+        packed = batch.packed
+        if packed is None or packed.shape != (tc.batch_size, Lmax + 4):
+            packed = pack_input(batch.codes[:n], batch.lengths, tc.batch_size)
+        flat, ready, events = self._program(tier, Lmax).run(packed, self.eager_step, timer)
         return self._register_pending(batch, flat, ready, tier, origins, events)
 
     def _submit_grid(self, batch: ReadBatch, tc: TierConfig, params: FilterParams):
@@ -686,7 +834,7 @@ class MappingEngine:
             self.stage_timer.collect(events, tier)
         n = batch.num_reads
         n_dp, n_ip = self._mesh_shape()
-        Bloc = self._row_reads(n)
+        Bloc = self._segment_reads(n, tier)
         acc_cap = self._cell_caps(self._tier(tier))[1]
         host = unpack_result(flat.numpy(), acc_cap, Bloc, n_dp * n_ip)
         # Segments are data-row-major; a row's index shards carry identical

@@ -159,6 +159,7 @@ def slot_case(ref, e, Lmax, seed, NB=48, V=400):
     rng = np.random.default_rng(seed)
     lens = rng.integers(30, Lmax + 1, NB).astype(np.int32)
     lens[0] = 0
+    lens[-1] = Lmax  # a read of the full width: every 32-base chunk of the loop
     both = rng.integers(0, 5, (NB, Lmax)).astype(np.uint8)
     v_lane = rng.integers(0, NB, V).astype(np.int32)
     v_sid = rng.integers(0, ref.num_seqs, V).astype(np.int32)
@@ -179,3 +180,21 @@ def slot_case(ref, e, Lmax, seed, NB=48, V=400):
     v_sid[41], v_pos[41] = 0, -int(ref.offsets[0]) - 7  # before byte 0
     v_sid[43], v_pos[43] = ref.num_seqs - 1, total - int(ref.offsets[-1]) - 20  # past the end
     return v_sid, v_pos, v_lane, both, lens
+
+
+# The parameter sweep of tests/test_config_matrix.py, and e=7 at 150 bp
+# inside FEM's step bound (docs/SOAK.md): name -> (k, step, e, a, read
+# length, most errors a simulated read carries). Mapped on the CPU by
+# tests/test_torch_config_matrix*.py and on the card by
+# tests/test_torch_cuda.py.
+SWEEP_CONFIGS = {
+    "e7_a2": (12, 3, 7, 2, 100, 3),  # max error threshold + max additional q-grams
+    "e0": (12, 3, 0, 1, 100, 0),  # zero errors
+    "e5_a0": (12, 3, 5, 0, 100, 3),  # no additional q-grams
+    "k10_step5": (10, 5, 3, 1, 100, 3),  # non-default k/step
+    "len148": (12, 3, 2, 1, 148, 2),  # longer reads (Lmax bucket 160)
+    "len76_step2": (12, 2, 4, 1, 76, 3),  # short reads, step 2
+    "e7_len150": (12, 3, 7, 2, 150, 7),  # e=7 inside the step bound: reads map
+}
+SWEEP_CAPS = dict(batch_size=48, cap_occ=256, cap_cand=128, verify_per_read=32,
+                  accept_per_read=16)

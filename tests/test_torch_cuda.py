@@ -26,6 +26,8 @@ from fem_tpu_torch.ops.verify import verify_candidates, verify_candidates_plain
 from fem_tpu_torch.pipeline.engine import EngineConfig, MappingEngine, TierConfig
 from fem_tpu_torch.stats import MappingStats
 from test_torch_cases import (
+    SWEEP_CAPS,
+    SWEEP_CONFIGS,
     TAIL_CASE_NAMES,
     TAIL_SHAPE,
     WIDE_CASE_NAMES,
@@ -173,11 +175,12 @@ def test_myers_kernel_matches_plain(cuda, small_reference, small_index, e):
 
 
 @pytest.mark.parametrize("used,Lmax", [(0, 128), (1, 128), (200, 128), (400, 128),
-                                       (400, 100), (400, 40)])
+                                       (400, 100), (400, 40), (400, 160), (400, 256)])
 @pytest.mark.parametrize("e", [0, 2, 5, 7])
 def test_myers_kernel_edges(cuda, small_reference, small_index, e, used, Lmax):
     """Windows into the gap and past the array's ends, reads with N, rows
-    off a 16-byte boundary, and `used` of the 400 slots in use."""
+    off a 16-byte boundary, `used` of the 400 slots in use, and full-width
+    reads across five and eight 32-base chunks (Lmax 160, 256)."""
     _, ref = small_reference
     index = device_index_from_host(small_index, ref, cuda)
     args = [torch.from_numpy(x).to(cuda) for x in slot_case(ref, e, Lmax, 700 + 10 * e + Lmax)]
@@ -198,7 +201,7 @@ def test_engine_defaults_to_cuda(cuda, small_reference, small_index, default_arg
 
 def _batch(reads):
     lengths = np.array([len(r.seq) for r in reads], np.int32)
-    codes = np.full((len(reads), 128), 4, np.uint8)
+    codes = np.full((len(reads), max(128, -(-int(lengths.max()) // 32) * 32)), 4, np.uint8)
     for i, r in enumerate(reads):
         codes[i, : len(r.seq)] = encode(r.seq)
     return ReadBatch([r.name for r in reads], [r.seq for r in reads],
@@ -215,12 +218,71 @@ def test_engine_on_cuda_matches_golden(cuda, small_reference, small_index, defau
     golden = GoldenMapper(default_args, ref, small_index)
     reads = sim.simulate_reads(seqs, 64, read_length=100, max_errors=2, seed=35)
     batch = _batch(reads)
-    kernels.reset_launches()
-    recs, stats = engine.map_batch(batch)
     grecs, gstats = golden.map_reads(batch.names, batch.seqs, batch.quals)
-    assert b"".join(recs) == b"".join(grecs)
-    assert dataclasses.asdict(stats) == dataclasses.asdict(gstats)
-    assert kernels.launches == {"banded_myers": 1, "filter_tail": 1}
+    # The first dispatch of the (tier 0, Lmax 128) step runs eagerly and is
+    # then captured into a CUDA graph; the second replays the graph. Each
+    # launches each kernel once, and a replay counts what the capture
+    # recorded.
+    for _ in range(2):
+        kernels.reset_launches()
+        recs, stats = engine.map_batch(batch)
+        assert b"".join(recs) == b"".join(grecs)
+        assert dataclasses.asdict(stats) == dataclasses.asdict(gstats)
+        assert kernels.launches == {"banded_myers": 1, "filter_tail": 1}
+    prog = engine.programs[0, 128]
+    assert prog.graph is not None and prog.replays == 1
+    assert kernels.launches_by_shape()["banded_myers"] == {(64 * 2 * 4, 128): 1}
+
+
+def test_eager_step_on_cuda_equals_graph(cuda, small_reference, small_index, default_args):
+    """engine.eager_step runs the step eagerly on the card (a StageTimer
+    needs it, and refuses the graphs); a short batch is padded either way."""
+    from fem_tpu_torch.pipeline.engine import StageTimer
+
+    seqs, ref = small_reference
+    engine = MappingEngine(default_args, ref, small_index,
+                           EngineConfig(batch_size=64, cap_occ=80, cap_cand=16,
+                                        verify_per_read=4), device=cuda)
+    batch = _batch(sim.simulate_reads(seqs, 50, read_length=100, max_errors=2, seed=37))
+    graphs = [engine.map_batch(batch) for _ in range(3)]
+    engine.stage_timer = StageTimer(cuda)
+    with pytest.raises(ValueError, match="eager_step"):
+        engine.map_batch(batch)
+    engine.eager_step = True
+    eager = engine.map_batch(batch)
+    assert all(g == eager for g in graphs)
+    assert engine.stage_timer.batches[0] == 1
+    assert engine.programs[0, 128].replays == 2
+
+
+@pytest.mark.parametrize("n", [48, 40], ids=["full", "short"])
+@pytest.mark.parametrize("name", list(SWEEP_CONFIGS))
+def test_sweep_config_on_cuda_matches_golden(cuda, tmp_path, name, n):
+    """The parameter sweep (tests/test_torch_config_matrix.py) through the
+    step graphs: the first dispatch eager, the second a replay; both equal
+    to the golden oracle in bytes and counters."""
+    from fem_tpu_torch.config import FemArgs
+    from fem_tpu_torch.index.build import build_index
+    from fem_tpu_torch.io import fastx
+
+    k, step, e, a, read_len, max_errors = SWEEP_CONFIGS[name]
+    seqs = sim.random_genome(150_000, num_seqs=2, seed=23, repeat_fraction=0.2)
+    sim.write_fasta(str(tmp_path / "ref.fa"), seqs)
+    ref = fastx.read_fasta(str(tmp_path / "ref.fa"))
+    index = build_index(ref, k, step)
+    reads = sim.simulate_reads(seqs, 48, read_length=read_len, max_errors=max_errors,
+                               seed=24)[:n]
+    args = FemArgs(kmer_size=k, step_size=step, error_threshold=e, num_additional_qgrams=a)
+    engine = MappingEngine(args, ref, index, EngineConfig(**SWEEP_CAPS), device=cuda)
+    batch = _batch(reads)
+    grecs, gstats = GoldenMapper(args, ref, index).map_reads(
+        batch.names, batch.seqs, batch.quals)
+    for _ in range(2):
+        recs, stats = engine.map_batch(batch)
+        assert b"".join(recs) == b"".join(grecs)
+        assert dataclasses.asdict(stats) == dataclasses.asdict(gstats)
+    assert all(p.graph is not None for p in engine.programs.values())
+    assert engine.programs[0, batch.codes.shape[1]].replays == 1
 
 
 TIERS = (

@@ -210,7 +210,8 @@ def test_native_build_error_raises_with_compiler_output(tmp_path):
 
 
 @pytest.mark.parametrize("name", ["baseline.cpp", "align_core.h", "mapper_core.h",
-                                  "emit.cpp", "capi_mapper.cpp", "fastq.cpp"])
+                                  "emit.cpp", "capi_mapper.cpp", "fastq.cpp",
+                                  "tsan_stress.cpp"])
 def test_native_sources_are_byte_copies(name):
     """The oracle (baseline.cpp) and the native sources start as exact
     copies, so a later edit of the port's copy is a visible decision."""

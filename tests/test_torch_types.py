@@ -100,12 +100,15 @@ def test_port_imports_without_jax(tmp_path):
 
 
 def test_port_sources_name_no_fem_tpu_import():
-    """No file of the port, and not chip_smoke.py, imports fem_tpu or jax
-    (comments that cite fem_tpu/...:line as the counterpart are fine)."""
+    """No file of the port, not chip_smoke.py and no tools/torch_*.py
+    imports fem_tpu or jax (comments that cite fem_tpu/...:line as the
+    counterpart are fine)."""
+    import glob
     import re
 
     pat = re.compile(r"^\s*(from|import)\s+(fem_tpu|jax)(\.|\s|$)", re.M)
     files = [os.path.join(_REPO, "chip_smoke.py")]
+    files += glob.glob(os.path.join(_REPO, "tools", "torch_*.py"))
     for root, _, names in os.walk(os.path.join(_REPO, "fem_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 20

@@ -132,13 +132,15 @@ def test_kernel_slot_code_matches_plain(host_check, small_reference, small_index
 
 
 @pytest.mark.parametrize("used,Lmax", [(0, 128), (1, 128), (200, 128), (400, 128),
-                                       (400, 100), (400, 40)])
+                                       (400, 100), (400, 40), (400, 160), (400, 256)])
 @pytest.mark.parametrize("e", [0, 2, 5, 7])
 def test_kernel_slot_code_edges(host_check, small_reference, small_index, e, used, Lmax):
     """Host build of the kernel's slot code == plain version == fem_tpu's
     banded_myers on windows gathered with numpy, exactly, with `used` of the
     400 slots in use. Lmax 100 and 40 give read rows that start off a
-    16-byte boundary."""
+    16-byte boundary; at Lmax 160 and 256 a full-width read crosses the
+    32-base chunk loop (csrc/myers_core.h:verify_slot) five and eight
+    times."""
     _, ref = small_reference
     index = ttypes.device_index_from_host(small_index, ref, "cpu")
     case = slot_case(ref, e, Lmax, 700 + 10 * e + Lmax)
