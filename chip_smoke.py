@@ -204,6 +204,13 @@ ROW_LAUNCHES = {
     "filter_tail_shard": ("filter_tail", lambda s: s == (80, 16), "grid_1x4"),
     "filter_tail_shard_dp2": ("filter_tail", lambda s: s == (80, 16), "grid_2x2"),
     "banded_myers_shard": ("banded_myers", lambda s: s == (BATCH, 2 * BATCH), "grid_1x4"),
+    # Phase 10's tier-0 steps at the sweep's widths: e=7 a=2 on 150 bp reads
+    # (Lmax 160, the 15-bit band), and e=4 on 76 bp reads (Lmax 96).
+    "filter_tail_e7_a2": ("filter_tail", lambda s: s == (80, 16), "configs_e7_len150"),
+    "banded_myers_lmax160": ("banded_myers", lambda s: s == (4 * BATCH, 2 * BATCH),
+                             "configs_e7_len150"),
+    "banded_myers_lmax96": ("banded_myers", lambda s: s == (4 * BATCH, 2 * BATCH),
+                            "configs_len76_step2"),
 }
 
 
@@ -419,22 +426,23 @@ def satellite_genome():
                                 unit_range=(24, 160), copies_range=(48, 512))
 
 
-def _myers_inputs(ref, e: int, rng, dev, NB: int = 2 * BATCH, V: int | None = None):
+def _myers_inputs(ref, e: int, rng, dev, NB: int = 2 * BATCH, V: int | None = None,
+                  Lmax: int = 128):
     """Verify slots at the main path's shape: 2 slots per read-strand lane
-    of a 16,384-read batch, Lmax 128 (or V slots over NB lanes). Lane l's
+    of a 16,384-read batch, Lmax 128 (or V slots over NB lanes, or another
+    Lmax; half the reads take lengths up to the full Lmax). Lane l's
     read is the diagonal of slot 2l's reference window with up to e+1
     substitutions (the mutated copies of tests/test_verify_pallas.py), so
     part of the slots are accepted; slot 2l+1 points elsewhere, a few of
     them into the trailing gap. With fewer than 2 slots a lane, the lanes
     no slot names hold windows from elsewhere."""
-    Lmax = 128
     V = 2 * NB if V is None else V
     L0 = int(ref.lengths[0])
     v_lane = (np.arange(V, dtype=np.int32) // 2) % NB
     v_sid = np.zeros(V, np.int32)
     v_pos = rng.integers(0, L0 - Lmax - 2 * e, V).astype(np.int32)
     v_pos[1:64:2] = rng.integers(L0 - Lmax, L0 + 40, 32)
-    lens = np.full(NB, 100, np.int32)
+    lens = np.full(NB, min(100, Lmax), np.int32)
     lens[NB // 2 :] = rng.integers(40, Lmax + 1, NB - NB // 2)
     starts = v_pos[0 : 2 * NB : 2]
     if starts.shape[0] < NB:  # fewer slots than 2 a lane: the other reads are random windows
@@ -536,6 +544,23 @@ def phase_kernels(ref, index, dev) -> list[dict]:
             bnd, note = myers_bound(*args, e, None)
             row.update(bnd)
             log(f"[kernels] banded_myers synthetic: {note}")
+    # The parameter sweep's widths (phase 10): Lmax 96 (76 bp reads, e=4),
+    # 160 (150 bp, e=7: the 15-bit band and a fifth 32-base chunk of
+    # myers_core.h's loop) and 256 (eight chunks).
+    for Lmax, e in ((96, 4), (160, 7), (256, 7)):
+        args = _myers_inputs(ref, e, rng, dev, Lmax=Lmax)
+        V = args[0].shape[0]
+        for used in (None, torch.tensor(V // 2, device=dev)):
+            got = verify_candidates(dindex, *args, e, used=used)
+            want = verify_candidates_plain(dindex, *args, e, used=used)
+            torch.cuda.synchronize()
+            d = max_abs_err(got, want)
+            n_acc = int(want.accepted.sum())
+            log(f"[kernels] banded_myers Lmax={Lmax} e={e} V={V} used="
+                f"{'all' if used is None else int(used)}: max_abs_err {d}, {n_acc} accepted")
+            check(d == 0, f"banded_myers differs from its plain version at Lmax {Lmax}")
+            check(0 < n_acc < V, f"banded_myers check at Lmax {Lmax} accepts all or none")
+            err = max(err, d)
     row["max_abs_err"] = max(err, row["max_abs_err"])
     rows.append(row)
     _log_times("[kernels] banded_myers", f"at e={E}", row, row)
@@ -1082,33 +1107,77 @@ def _no_ladder_run(tag: str, args, ref, index, paths, config, counted: dict) -> 
 
 def _profiled_run(tag: str, engine, probe, batches, digest) -> None:
     """One more pipelined run under torch.profiler: the device's busy and
-    idle share of the wall, and the kernels that take most of its time."""
+    idle share of the wall, and the kernels that take most of its time.
+    The run replays graphs, whose launches the wrappers count from what
+    the captures recorded: the trace must show each kernel as often as
+    they counted. Then one more run with the host's activity traced too:
+    where a submit_batch's host time goes."""
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         again = run_engine(engine, probe, batches, "stream")
         torch.cuda.synchronize()
     check(again["digest"] == digest, f"{tag}: the profiled run gave other records")
     events = [(ev.key, getattr(ev, "device_time_total", None)
                or getattr(ev, "cuda_time_total", 0), ev.count) for ev in prof.key_averages()]
-    wall_ms = again["seconds"] * 1e3
-    # The run replays graphs: the idle share means something only if the
-    # trace holds the kernels the replays launched.
     ours = {k: c for k, _, c in events if "filter_tail" in k or "banded_myers" in k}
-    replayed = sum(ours.values())
-    if replayed < 2 * again["launches"]["filter_tail"]:
-        log(f"[main] {tag} profiled pipelined run: wall {wall_ms:.1f} ms; the profiler saw "
-            f"{replayed} of the {2 * again['launches']['filter_tail']} kernel launches the "
-            f"graph replays made ({ours}): device idle share not measured")
-        return
+    for kernel, counted in again["launches"].items():
+        seen = sum(c for k, c in ours.items() if kernel in k)
+        check(seen == counted, f"{tag}: the profiler saw {kernel} {seen} times, the "
+              f"wrappers counted {counted} launches ({ours})")
+    wall_ms = again["seconds"] * 1e3
     busy_ms = sum(t for _, t, _ in events) / 1e3
     top = sorted(events, key=lambda x: -x[1])[:6]
     log(f"[main] {tag} profiled pipelined run through the graphs: wall {wall_ms:.1f} ms "
         f"({again['reads_per_s']:,.1f} reads/s under the profiler), device busy "
         f"{busy_ms:.1f} ms over {sum(c for _, _, c in events)} kernels and copies, idle "
-        f"{1 - busy_ms / wall_ms:.1%} of the wall; the replays' kernels seen: "
+        f"{1 - busy_ms / wall_ms:.1%} of the wall; the replays' kernels seen, each as "
+        f"often as counted {again['launches']}: "
         + ", ".join(f"{k[:60]} x{c}" for k, c in ours.items()) + "; largest: "
         + "; ".join(f"{k[:48]} {t / 1e3:.2f} ms x{c}" for k, t, c in top))
+    _submit_split(tag, engine, probe, batches, digest)
+
+
+def _submit_split(tag: str, engine, probe, batches, digest) -> None:
+    """The pipelined run once more with host and device traced and each
+    submit_batch marked: by tier, its mean host ms and the mean ms of its
+    direct children in the trace (torch ops and CUDA runtime calls);
+    `other` is the rest (Python, and waits for the interpreter lock)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    real = engine.submit_batch
+
+    def marked(batch, tier=0, origins=None):
+        with record_function(f"chip_smoke::submit_batch[{tier}]"):
+            return real(batch, tier, origins)
+
+    engine.submit_batch = marked
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            again = run_engine(engine, probe, batches, "stream")
+            torch.cuda.synchronize()
+    finally:
+        engine.submit_batch = real
+    check(again["digest"] == digest, f"{tag}: the run with the host traced gave other records")
+    split = {}
+    for ev in prof.events():
+        if ev.name.startswith("chip_smoke::submit_batch["):
+            d = split.setdefault(int(ev.name[len("chip_smoke::submit_batch["):-1]),
+                                 {"calls": 0, "total": 0.0, "children": collections.Counter()})
+            d["calls"] += 1
+            d["total"] += ev.cpu_time_total
+            for child in ev.cpu_children:
+                d["children"][child.name] += child.cpu_time_total
+    check(0 in split, f"{tag}: the trace holds no tier-0 submit_batch")
+    for tier, d in sorted(split.items()):
+        n = d["calls"]
+        kids = {k: v / n / 1e3 for k, v in d["children"].most_common(6)}
+        kids["other"] = (d["total"] - sum(d["children"].values())) / n / 1e3
+        log(f"[main] {tag}: submit_batch at tier {tier} under the profiler (host traced), "
+            f"{n} calls, mean {d['total'] / n / 1e3:.3f} ms: "
+            + ", ".join(f"{k} {v:.3f} ms" for k, v in kids.items()))
+
 
 # Phase 7's tuning flags: the benign point's EngineConfig on the command line.
 CLI_TUNE = ["--batch-size", str(BATCH), "--cap-occ", "80", "--cap-cand", "16",
@@ -1502,15 +1571,76 @@ SWEEP = (("e7_a2", 12, 3, 7, 2, 100, 3), ("e0", 12, 3, 0, 1, 100, 0),
          ("len148", 12, 3, 2, 1, 148, 2), ("len76_step2", 12, 2, 4, 1, 76, 3),
          ("e7_len150", 12, 3, 7, 2, 150, 7))
 SWEEP_READS = 20_000  # one full tier-0 batch and one padded one of 3,616
+# The wrapper calls phase 10 holds against their plain versions, by a test
+# of (wrapper, arguments): tier 0 and tier 1 of the default ladder.
+SWEEP_CALLS = {
+    "filter_tail_tier0": lambda attr, a: attr == "filter_tail" and (a[0].shape[2], a[2]) == (80, 16),
+    "banded_myers_tier0": lambda attr, a: (attr == "verify_candidates" and (
+        a[1].shape[0], a[4].shape[0]) == (4 * BATCH, 2 * BATCH)),
+    "filter_tail_tier1": lambda attr, a: attr == "filter_tail" and (a[0].shape[2], a[2]) == TIER1[1:],
+    "banded_myers_tier1": lambda attr, a: (attr == "verify_candidates" and (
+        a[1].shape[0], a[4].shape[0]) == (2 * TIER1[0] * 32, 2 * TIER1[0])),
+}
+# Which of them are rows of the kernel table, timed: (configuration, call).
+SWEEP_ROWS = {("e7_len150", "filter_tail_tier0"): "filter_tail_e7_a2",
+              ("e7_len150", "banded_myers_tier0"): "banded_myers_lmax160",
+              ("len76_step2", "banded_myers_tier0"): "banded_myers_lmax96"}
 
 
-def phase_configs(workdir: str, seqs, benign_paths: dict) -> dict:
+def _hold_call(name: str, key: str, args: list, kw: dict, row: str | None) -> dict | None:
+    """One wrapper call captured from configuration `name`'s run, against its
+    plain version on the same inputs (exact). With `row`, also timed and
+    bounded as a kernel-table row, which is returned."""
+    from fem_tpu_torch.ops.filter_tail import filter_tail, filter_tail_plain
+    from fem_tpu_torch.ops.verify import verify_candidates, verify_candidates_plain
+
+    if key.startswith("filter_tail"):
+        sid, diag, cc, e, a = args
+        kernel = lambda: filter_tail(sid, diag, cc, e, a)
+        plain = lambda: filter_tail_plain(sid, diag, cc, e, a)
+        bnd, note = tail_bound(sid, diag, cc)
+        what = f"NB={sid.shape[0]} G={sid.shape[1]} CAP={sid.shape[2]} CC={cc} e={e} a={a}"
+        base = {"source": "fem_tpu_torch/csrc/filter_tail.cu",
+                "replaces": "fem_tpu/ops/filter_tail_pallas.py:213"}
+        timing = dict(plain_reps=3, cuda_name="filter_tail_kernel")
+    else:
+        dindex, v_sid, v_pos, v_lane, both, lens, e = args
+        used = kw["used"]
+        kernel = lambda: verify_candidates(dindex, v_sid, v_pos, v_lane, both, lens, e, used=used)
+        plain = lambda: verify_candidates_plain(dindex, v_sid, v_pos, v_lane, both, lens, e,
+                                                used=used)
+        bnd, note = myers_bound(v_sid, v_pos, v_lane, both, lens, e, used)
+        what = f"V={v_sid.shape[0]} Lmax={both.shape[1]} e={e}"
+        base = {"source": "fem_tpu_torch/csrc/banded_myers.cu",
+                "replaces": "fem_tpu/ops/verify_pallas.py:122"}
+        timing = dict(plain_reps=2, plain_samples=3)
+    if row is None:
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        d = max_abs_err(got, want)
+        log(f"[configs] {name} {key} ({what}; {note}): max_abs_err {d}")
+        check(d == 0, f"{name}: {key} differs from its plain version")
+        return None
+    res = {"name": row, "route": "cuda", **base, "library_ms": None}
+    res.update(compare_and_time(key.rsplit("_", 1)[0], f"the {name} inputs of {key}",
+                                kernel, plain, **timing))
+    res.update(bnd)
+    _log_times(f"[configs] {row}", f"on the {name} inputs ({what}; {note}), max_abs_err "
+               f"{res['max_abs_err']}", res, bnd)
+    return res
+
+
+def phase_configs(workdir: str, seqs, benign_paths: dict) -> tuple[dict, list]:
     """Phase 10: each configuration of SWEEP on the benign point's 46 Mb
     genome, 20,000 reads through the pipelined stream with the default
     ladder and the benign point's caps, through the step graphs; records
     and the five counters == fem_baseline. FEM's step bound, step <=
     L/(e+2) - k + 1, holds for none of the reads of e7_a2 and len76_step2:
-    no read maps there, and their pre-filter counter passes 2^32."""
+    no read maps there, and their pre-filter counter passes 2^32. Then the
+    same reads once more with the eager step, whose kernel wrapper calls
+    at tiers 0 and 1 are held against their plain versions (SWEEP_CALLS;
+    SWEEP_ROWS also timed, as rows of the kernel table). Returns each
+    configuration's counted run and the rows."""
     from fem_tpu_torch import sim
     from fem_tpu_torch.config import FemArgs
     from fem_tpu_torch.index.build import build_index
@@ -1521,7 +1651,7 @@ def phase_configs(workdir: str, seqs, benign_paths: dict) -> dict:
     t_phase = time.perf_counter()
     ref = fastx.read_fasta(benign_paths["fa"])
     indexes = {(KMER, STEP): (load_index(benign_paths["ix"]), benign_paths["ix"])}
-    out = {}
+    out, rows = {}, []
     for name, k, step, e, a, length, max_errors in SWEEP:
         t0 = time.perf_counter()
         d = os.path.join(workdir, "configs", name)
@@ -1543,7 +1673,6 @@ def phase_configs(workdir: str, seqs, benign_paths: dict) -> dict:
         probe = Probe(engine)
         setup_s = time.perf_counter() - t0
         run = run_engine(engine, probe, batches, "stream")
-        probe.close()
         tag = f"configs {name}"
         _log_run(tag, f"k={k} step={step} e={e} a={a}, {length} bp reads (Lmax "
                  f"{sorted({b.codes.shape[1] for b in batches})}), batches of "
@@ -1567,18 +1696,41 @@ def phase_configs(workdir: str, seqs, benign_paths: dict) -> dict:
             check(counters[1] == 0, f"{tag}: a read mapped outside the step bound")
         else:
             check(counters[1] > 0, f"{tag}: no read mapped inside the step bound")
+
+        # The kernels on this configuration's inputs: the reads once more,
+        # outside the counted run, with the eager step (a replay calls no
+        # wrapper, so none could be seen).
+        probe.capture = SWEEP_CALLS
+        engine.eager_step = True
+        again = run_engine(engine, probe, batches, "stream")
+        engine.eager_step = False
+        probe.close()
+        check(again["digest"] == run["digest"] and again["stats"] == run["stats"],
+              f"{tag}: the eager step gave other records or counters")
+        want = {"filter_tail_tier0", "banded_myers_tier0"} | (
+            {"filter_tail_tier1", "banded_myers_tier1"} if tiers else set())
+        check(want <= set(probe.captured), f"{tag}: captured {sorted(probe.captured)} only")
+        for key, (args_, kw) in sorted(probe.captured.items()):
+            row = _hold_call(name, key, args_, kw, SWEEP_ROWS.get((name, key)))
+            if row is not None:
+                rows.append(row)
         out[name] = {"counters": counters, "retried": run["retried"],
                      "dispatches": run["dispatches"], "fallback": run["fallback"],
-                     "graphs": graphs, "reads_per_s": run["reads_per_s"]}
-        del engine, probe, batches
+                     "graphs": graphs, "reads_per_s": run["reads_per_s"],
+                     "tail_shapes": run["tail_shapes"], "myers_shapes": run["myers_shapes"]}
+        del engine, probe, batches, again
         torch.cuda.empty_cache()
+    check({r["name"] for r in rows} == set(SWEEP_ROWS.values()),
+          f"phase 10 timed rows {sorted(r['name'] for r in rows)} only")
     log(f"[configs] phase 10: {time.perf_counter() - t_phase:.1f} s")
-    return out
+    return out, rows
 
 
 def main() -> int:
     from fem_tpu_torch.pipeline.engine import EngineConfig
 
+    t_start = time.perf_counter()
+    lap = lambda what: log(f"[time] {what} done at {time.perf_counter() - t_start:.1f} s")
     smi = phase_device()
     dev = "cuda:0"
     phase_build()
@@ -1587,6 +1739,7 @@ def main() -> int:
         ref, index, paths = phase_setup(workdir, "benign", benign_seqs, read_seed=9)
         benign_paths = paths
         rows = phase_kernels(ref, index, dev)
+        lap("phases 1-4")
         is_tail = lambda attr, a, shape: attr == "filter_tail" and (a[0].shape[2], a[2]) == shape
         is_verify = lambda attr, a, row: (  # a row's own test of (slots, lanes)
             attr == "verify_candidates"
@@ -1601,6 +1754,7 @@ def main() -> int:
                      "banded_myers": lambda attr, a: is_verify(attr, a, "banded_myers")},
             no_ladder_pass=True)
         phase_replay(rows, captured, "main_inputs")
+        lap("benign phases 5-6")
         del ref, index, captured
         torch.cuda.empty_cache()
 
@@ -1619,14 +1773,18 @@ def main() -> int:
                      "banded_myers_tier2":
                          lambda attr, a: is_verify(attr, a, "banded_myers_tier2")})
         phase_replay(rows, captured, "adversarial_inputs")
+        lap("adversarial phases 3, 5-6")
         del ref, index, captured
         torch.cuda.empty_cache()
         cli_shapes = phase_cli(workdir, benign_paths)
+        lap("phase 7")
         phase_bench()
+        lap("phase 8")
         grid_rows, grid_runs = phase_parallel(workdir, benign_paths, adv_paths,
                                               adversarial["fallback"], dev)
-        phase_configs(workdir, benign_seqs, benign_paths)
-    rows += grid_rows
+        lap("phase 9")
+        sweep_runs, sweep_rows = phase_configs(workdir, benign_seqs, benign_paths)
+    rows += grid_rows + sweep_rows
     check(adversarial["retried"] > 0, "adversarial: no read was retried")
     check(any(cap + cc > 512 for cap, cc in adversarial["tail_shapes"]),
           "adversarial: filter_tail never launched above cap_cand + cap_occ = 512")
@@ -1636,18 +1794,22 @@ def main() -> int:
     # each counted run; `launches` is the count on the row's own main path.
     # (The adversarial point's tier 0 has 262,144 verify slots too: tier 2's
     # launches are those over at most 2 * 64 lanes.)
+    # A row of phase 10 is read on its configuration's counted run only: the
+    # shape of a count names no Lmax, e or a.
     runs = {"benign": benign, "adversarial": adversarial, **grid_runs}
+    paths = {**runs, **{f"configs_{n}": r for n, r in sweep_runs.items()}}
     check({r["name"] for r in rows} == set(ROW_LAUNCHES), "a row without a launch count")
     for row in rows:
         kernel, at_shape, path = ROW_LAUNCHES[row["name"]]
-        for point, run in runs.items():
-            by_shape = run["tail_shapes" if kernel == "filter_tail" else "myers_shapes"]
-            row[f"launches_{point}"] = sum(n for s, n in by_shape.items() if at_shape(s))
-        row["launches"] = row[f"launches_{path}"]
-        row["launches_cli"] = sum(n for s, n in cli_shapes[kernel].items() if at_shape(s))
+        count = lambda by_shape: sum(n for s, n in by_shape.items() if at_shape(s))
+        shapes = "tail_shapes" if kernel == "filter_tail" else "myers_shapes"
+        row["launches"] = count(paths[path][shapes])
+        if path in runs:
+            row.update({f"launches_{point}": count(run[shapes]) for point, run in runs.items()})
+            row["launches_cli"] = count(cli_shapes[kernel])
         check(row["launches"] > 0, f"{row['name']} was launched no time on the main path")
         row["bound_us"] = row["bound_ms"] * 1e3
-    log(f"[done] card: {smi}")
+    log(f"[done] card: {smi}; the whole script {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -40,8 +40,8 @@ class ReadBatch:
     the device, with `lengths` carrying true read lengths.
 
     Batches from the native C++ reader instead carry flat blobs with
-    offsets (plus `packed`, the ready-to-upload device buffer); the list
-    views materialize lazily so fallback paths keep working.
+    offsets (plus `packed`, the ready-to-upload buffer, a uint8 tensor);
+    the list views materialize lazily so fallback paths keep working.
     """
 
     def __init__(
@@ -51,7 +51,7 @@ class ReadBatch:
         quals: List[bytes] | None = None,
         codes: np.ndarray | None = None,
         lengths: np.ndarray | None = None,
-        packed: np.ndarray | None = None,
+        packed: "torch.Tensor | None" = None,
         names_blob: bytes | None = None,
         name_offsets: np.ndarray | None = None,
         seqs_blob: bytes | None = None,

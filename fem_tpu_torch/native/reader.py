@@ -8,6 +8,7 @@ import ctypes
 from typing import Iterator
 
 import numpy as np
+import torch
 
 from fem_tpu_torch.native.build import native_library
 
@@ -40,7 +41,8 @@ def stream_fastq_batches_native(
     max_read_length: int = 508,
     pad_to_multiple: int = 32,
 ) -> Iterator:
-    """Yield ReadBatch objects with blobs + a trimmed packed device buffer.
+    """Yield ReadBatch objects with blobs + a trimmed packed upload buffer
+    (a uint8 tensor).
     Raises NativeReadError (possibly mid-stream) when the file needs the
     Python parser instead."""
     from fem_tpu_torch.io.fastx import ReadBatch
@@ -76,15 +78,18 @@ def stream_fastq_batches_native(
             lmax = int(lengths.max())
             lmax = max(-(-lmax // pad_to_multiple) * pad_to_multiple, pad_to_multiple)
             # Trim the packed buffer to this batch's padded length; unused
-            # rows keep zero length bytes.
-            packed = np.full((batch_size, lmax + 4), 4, np.uint8)
+            # rows keep zero length bytes. Where a card is present it lies in
+            # pinned memory, from which the engine uploads it as it is.
+            upload = torch.empty((batch_size, lmax + 4), dtype=torch.uint8,
+                                 pin_memory=torch.cuda.is_available())
+            packed = upload.numpy()
             packed[:, :lmax] = codes[:, :lmax]
             packed[:n, lmax:] = codes[:n, max_read_length:]
             packed[n:, lmax:] = 0
             yield ReadBatch(
                 codes=packed[:n, :lmax],
                 lengths=lengths,
-                packed=packed,
+                packed=upload,
                 names_blob=names_blob[: name_offsets[n]].tobytes(),
                 name_offsets=name_offsets,
                 seqs_blob=seqs_blob[: seq_offsets[n]].tobytes(),

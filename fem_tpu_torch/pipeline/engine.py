@@ -278,19 +278,24 @@ def pack_result(out: dict) -> torch.Tensor:
     return torch.cat(parts)
 
 
-def pack_input(codes: np.ndarray, lengths: np.ndarray, batch_size: int) -> np.ndarray:
+def pack_input(codes: np.ndarray, lengths: np.ndarray, batch_size: int,
+               pin_memory: bool = False) -> torch.Tensor:
     """One batch as its (batch_size, Lmax + 4) uint8 upload, fem_tpu's
     `packed_in` (fem_tpu/pipeline/engine.py:759-768): a row holds a read's
     codes, then its length as 4 little-endian bytes; the rows past the
-    batch's reads are empty reads (codes 4, length 0)."""
+    batch's reads are empty reads (codes 4, length 0). With `pin_memory`
+    the rows are written straight into pinned host memory, from which the
+    upload goes without another copy."""
     n, Lmax = codes.shape
     if n > batch_size:
         raise ValueError(f"{n} reads do not fit a batch of {batch_size}")
-    packed = np.full((batch_size, Lmax + 4), 4, np.uint8)
+    out = torch.empty((batch_size, Lmax + 4), dtype=torch.uint8, pin_memory=pin_memory)
+    packed = out.numpy()
     packed[:n, :Lmax] = codes
+    packed[n:, :Lmax] = 4
     packed[:, Lmax:] = 0
     packed[:n, Lmax:] = np.asarray(lengths[:n], "<i4").view(np.uint8).reshape(n, 4)
-    return packed
+    return out
 
 
 def unpack_input(packed: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -421,23 +426,22 @@ class StepProgram:
         return pack_result(map_core(self.index, codes, lengths, self.params,
                                     self.verify_cap, self.accept_cap, mark))
 
-    def run(self, packed: np.ndarray, eager: bool = False, timer=None):
-        """Dispatch one packed batch without waiting for it: (the result
-        on the host, the events a drain waits on, the StageTimer events)."""
+    def run(self, packed: torch.Tensor, eager: bool = False, timer=None):
+        """Dispatch one packed batch (`pack_input`'s, in pinned memory on a
+        card) without waiting for it: (the result on the host, the events
+        a drain waits on, the StageTimer events)."""
         if self.stream is None:  # the CPU
-            return self.body(torch.from_numpy(packed)), [], None
-        staged = torch.empty(packed.shape, dtype=torch.uint8, pin_memory=True)
-        staged.copy_(torch.from_numpy(packed))
+            return self.body(packed), [], None
         events = None
         with self.lock, torch.cuda.stream(self.stream):
             if eager or self.graph is None:
-                inp = staged.to(self.device, non_blocking=True)
+                inp = packed.to(self.device, non_blocking=True)
                 if timer is not None:
                     events = timer.begin()
                 out = self.body(inp, (lambda st: timer.mark(events, st))
                                 if timer is not None else None)
             else:
-                self.static_in.copy_(staged, non_blocking=True)
+                self.static_in.copy_(packed, non_blocking=True)
                 self.graph.replay()
                 self.replays += 1
                 kernels.add_launches(self.launches)
@@ -701,9 +705,10 @@ class MappingEngine:
         without waiting for either; pair with `drain_batch`. `tier` selects
         the capacity rung: 0 = the config's own caps, >= 1 = the retry
         ladder for reads that overflowed a smaller tier. On one device the
-        batch is padded to the tier's batch size and packed (`pack_input`;
-        the native reader's `packed` buffer as it is, where it has that
-        shape) and goes to the (tier, Lmax) step program. Drain threads call
+        batch is padded to the tier's batch size and packed (`pack_input`,
+        into pinned memory on a card; the native reader's `packed` buffer as
+        it is, where it has that shape and is pinned on a card) and goes to
+        the (tier, Lmax) step program. Drain threads call
         this too (retries); the program enters the engine's stream itself:
         the current stream is per thread."""
         tc = self._tier(tier)
@@ -723,9 +728,11 @@ class MappingEngine:
         timer = self.stage_timer
         if timer is not None and self._stream is not None and not self.eager_step:
             raise ValueError("a StageTimer times the eager step: set engine.eager_step")
+        pin = self._stream is not None
         packed = batch.packed
-        if packed is None or packed.shape != (tc.batch_size, Lmax + 4):
-            packed = pack_input(batch.codes[:n], batch.lengths, tc.batch_size)
+        if (packed is None or tuple(packed.shape) != (tc.batch_size, Lmax + 4)
+                or (pin and not packed.is_pinned())):
+            packed = pack_input(batch.codes[:n], batch.lengths, tc.batch_size, pin)
         flat, ready, events = self._program(tier, Lmax).run(packed, self.eager_step, timer)
         return self._register_pending(batch, flat, ready, tier, origins, events)
 

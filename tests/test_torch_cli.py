@@ -186,7 +186,8 @@ def test_port_cli_imports_no_jax(workdir, tmp_path):
         "import fem_tpu_torch.bench\n"
         f"base = {_map_args(workdir)!r}\n"
         f"assert cli.main(base + ['-o', {str(tmp_path / 'g.sam')!r}, '--engine', 'golden']) == 0\n"
-        f"assert cli.main(base + ['-o', {str(tmp_path / 'd.sam')!r}, '--device', 'cpu']) == 0\n"
+        f"assert cli.main(base + ['-o', {str(tmp_path / 'd.sam')!r}, '--device', 'cpu',"
+        f" '--batch-size', '64']) == 0\n"
         "bad = [m for m in sys.modules if m in ('jax', 'fem_tpu')"
         " or m.startswith(('jax.', 'fem_tpu.'))]\n"
         "assert not bad, bad\n"

@@ -138,11 +138,11 @@ def test_packed_length_bytes_decode(Lmax):
     for i, n in enumerate(lengths):
         codes[i, :n] = rng.integers(0, 5, n)
     packed = pack_input(codes, lengths, 9)
-    assert packed.shape == (9, Lmax + 4) and packed.dtype == np.uint8
+    assert packed.shape == (9, Lmax + 4) and packed.dtype == torch.uint8
     np.testing.assert_array_equal(packed[:6, Lmax:], lengths.astype("<i4").view(np.uint8)
                                   .reshape(6, 4))
     assert (packed[6:, :Lmax] == 4).all() and (packed[6:, Lmax:] == 0).all()
-    got_codes, got_lengths = unpack_input(torch.from_numpy(packed))
+    got_codes, got_lengths = unpack_input(packed)
     assert got_lengths.dtype == torch.int32
     np.testing.assert_array_equal(got_lengths.numpy(), np.r_[lengths, 0, 0, 0])
     np.testing.assert_array_equal(got_codes.numpy()[:6], codes)
@@ -165,8 +165,9 @@ def test_packed_input_equals_native_reader(tmp_path):
                                               use_native=True))
     assert [b.num_reads for b in batches] == [4, 3]
     for b in batches:
-        assert b.packed is not None
-        np.testing.assert_array_equal(pack_input(b.codes, b.lengths, 4), b.packed)
+        assert b.packed is not None and b.packed.dtype == torch.uint8
+        np.testing.assert_array_equal(pack_input(b.codes, b.lengths, 4).numpy(),
+                                      b.packed.numpy())
 
 
 def _stand_in_body(calls):
