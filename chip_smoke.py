@@ -26,12 +26,14 @@ exits non-zero without its result line:
               shapes of the benign point: the adversarial point's tier-0
               shapes (the filter tail at 80 + 64 over 32,768 lanes, banded
               Myers at 262,144 slots over 32,768 lanes); the filter tail
-              at the default ladder's tier-1 (cap_occ 640 + cap_cand 512)
-              and tier-2 (5120 + 4096, whose scratch is a global-memory
-              workspace) shapes; banded Myers at tier 2's 262,144 slots
-              with 300 in use: each a row of its own. The filter tail at
-              4096 + 4096 (the widest shared-memory slab) and at 12288 +
-              4096: equality.
+              at the default ladder's tier-1 (cap_occ 640 + cap_cand 512,
+              a block of 256 threads a lane) and tier-2 (5120 + 4096, a
+              block of 1024 threads a lane, its scratch in shared memory)
+              shapes; banded Myers at tier 2's 262,144 slots with 300 in
+              use: each a row of its own. The filter tail at 4096 + 4096
+              and at 12288 + 4096 (scratch in a global-memory workspace):
+              equality. Which program a width takes is the wrapper's
+              `plan` (csrc/filter_tail_core.h:ft::plan), read here too.
   5. main     the engine on the card through the pipelined
               MappingEngine.map_stream (depth EngineConfig.pipeline_depth)
               with the default retry ladder, twice:
@@ -275,16 +277,18 @@ def single_ms(fn, reps: int) -> float:
 
 def profiler_ms(fn, kernel: str, reps: int = 20) -> float:
     """Mean device time of the CUDA kernel whose name contains `kernel`,
-    from torch.profiler over reps + 10 calls of fn(). The trace loses the
-    launches made while it starts (more of them the shorter the kernel),
-    so at least `reps` must be in it; a trace that lost more is taken
-    again, three times at most."""
+    from torch.profiler over reps + 11 calls of fn(), the first finished
+    before the others start. The trace can lose the launches made while it
+    starts (more of them the shorter the kernel), so at least `reps` must
+    be in it; a trace that lost more is taken again, three times at most."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     for attempt in range(3):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()  # a first launch inside the trace, finished before the timed ones
+            torch.cuda.synchronize()
             for _ in range(reps + 10):
                 fn()
             torch.cuda.synchronize()
@@ -293,9 +297,9 @@ def profiler_ms(fn, kernel: str, reps: int = 20) -> float:
             if kernel in ev.key:
                 total += getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
                 count += ev.count
-        if reps <= count <= reps + 10 and total > 0:
+        if reps <= count <= reps + 11 and total > 0:
             return total / count / 1e3
-        log(f"[profiler] saw {kernel} {count} times in {reps + 10} calls, {total} us "
+        log(f"[profiler] saw {kernel} {count} times in {reps + 11} calls, {total} us "
             f"(attempt {attempt + 1})")
     raise RuntimeError(f"torch.profiler lost launches of {kernel} in three traces")
 
@@ -376,7 +380,7 @@ def phase_build() -> None:
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             name = re.search(
-                r"(filter_tail_kernelILi\d+|filter_tail_ws_kernel|banded_myers_kernel)",
+                r"(filter_tail_(?:block_|ws_)?kernelILi\d+|banded_myers_kernel)",
                 m.group(1))
             name = name.group(1) if name else m.group(1)
         elif "registers" in line or "spill" in line:
@@ -680,30 +684,35 @@ def _tier_rows(ref, dindex, rng, dev) -> list[dict]:
     MappingEngine derives from cap_occ=80, cap_cand=16, B=16384: tier 1 is
     512 reads at 640 + 512, tier 2 is 64 reads at 5120 + 4096 with 262,144
     verify slots), each a row of the kernel table."""
-    from fem_tpu_torch.ops.filter_tail import SMEM_SLAB, filter_tail, filter_tail_plain
+    from fem_tpu_torch.ops.filter_tail import filter_tail, filter_tail_plain, plan
     from fem_tpu_torch.ops.verify import verify_candidates, verify_candidates_plain
 
     rows = []
+    tier2 = plan(*TIER2[1:])
+    check(tier2.in_shared_memory and tier2.threads == 1024,
+          f"the default tier 2 is not a 1024-thread lane in shared memory: {tier2}")
     tail = {"route": "cuda", "source": "fem_tpu_torch/csrc/filter_tail.cu",
             "replaces": "fem_tpu/ops/filter_tail_pallas.py:213", "library_ms": None}
     shapes = (("filter_tail_tier1", 2 * TIER1[0], *TIER1[1:], 3, 5),
               ("filter_tail_tier2", 2 * TIER2[0], *TIER2[1:], 1, 2))
     for name, NB, CAP, CC, plain_reps, plain_samples in shapes:
         sid, diag = _wide_slabs(rng, NB, STEP, CAP, dev)
-        in_smem = CAP + CC <= SMEM_SLAB
+        how = plan(CAP, CC)
         row = dict(tail, name=name)
         row.update(compare_and_time(
             "filter_tail", f"synthetic slabs at {CAP} + {CC}",
             lambda: filter_tail(sid, diag, CC, E, A),
             lambda: filter_tail_plain(sid, diag, CC, E, A), plain_reps, plain_samples,
-            cuda_name="filter_tail_kernel" if in_smem else "filter_tail_ws_kernel"))
+            cuda_name=how.kernel))
         bnd, note = tail_bound(sid, diag, CC)
         row.update(bnd)
         rows.append(row)
-        log(f"[kernels] {name} NB={NB} G={STEP} CAP={CAP} CC={CC} e={E} a={A}, scratch in "
-            f"{'shared memory' if in_smem else 'a global workspace'}: {note}")
+        log(f"[kernels] {name} NB={NB} G={STEP} CAP={CAP} CC={CC} e={E} a={A}, "
+            f"{how.kernel} with {how.threads} threads a lane, {how.words * 8:,} bytes of "
+            f"scratch in {'shared memory' if how.in_shared_memory else 'a global workspace'}: "
+            f"{note}")
         _log_times(f"[kernels] {name}", "synthetic", row, row)
-    # Equality at the widest shared-memory slab and far above it.
+    # Equality at 4096 + 4096 and far above tier 2, on a workspace.
     for NB, CAP, CC in ((128, 4096, 4096), (8, 12288, 4096)):
         sid, diag = _wide_slabs(rng, NB, STEP, CAP, dev)
         got = filter_tail(sid, diag, CC, E, A)
@@ -711,7 +720,8 @@ def _tier_rows(ref, dindex, rng, dev) -> list[dict]:
         torch.cuda.synchronize()
         d = max_abs_err(got, want)
         ms = cuda_ms(lambda: filter_tail(sid, diag, CC, E, A), 10)
-        log(f"[kernels] filter_tail NB={NB} G={STEP} CAP={CAP} CC={CC}: max_abs_err {d}, "
+        log(f"[kernels] filter_tail NB={NB} G={STEP} CAP={CAP} CC={CC} ({plan(CAP, CC).kernel}): "
+            f"max_abs_err {d}, "
             f"{int((got[0] != 2**30).sum(dim=1).float().mean())} candidates a lane kept, "
             f"{ms:.4f} ms warm")
         check(d == 0, f"filter_tail differs from its plain version at {CAP} + {CC}")
@@ -746,7 +756,7 @@ def phase_replay(rows: list[dict], captured: dict, suffix: str) -> None:
     """Each kernel on the inputs one main path gave it; `captured` maps a
     kernel-table row's name to the arguments of one wrapper call, and the
     row gains ms_<suffix> and the like."""
-    from fem_tpu_torch.ops.filter_tail import SMEM_SLAB, filter_tail, filter_tail_plain
+    from fem_tpu_torch.ops.filter_tail import filter_tail, filter_tail_plain, plan
     from fem_tpu_torch.ops.verify import verify_candidates, verify_candidates_plain
 
     by_name = {r["name"]: r for r in rows}
@@ -760,10 +770,13 @@ def phase_replay(rows: list[dict], captured: dict, suffix: str) -> None:
                 lambda: filter_tail(sid, diag, cc, e, a),
                 lambda: filter_tail_plain(sid, diag, cc, e, a),
                 1 if slow else 3, 2 if slow else 5,
-                cuda_name="filter_tail_kernel" if wide <= SMEM_SLAB else "filter_tail_ws_kernel")
+                cuda_name=plan(sid.shape[2], cc).kernel)
             bnd, note = tail_bound(sid, diag, cc)
             what = (f"NB={sid.shape[0]} G={sid.shape[1]} CAP={sid.shape[2]} CC={cc} "
                     f"e={e} a={a}; {note}")
+            if plan(sid.shape[2], cc).route == 1:
+                _threads_sweep(f"[replay] {key} on the {suffix.replace('_', ' ')}",
+                               sid, diag, cc, e, a)
         else:
             dindex, v_sid, v_pos, v_lane, both, lens, e = args
             used = kw["used"]
@@ -782,6 +795,25 @@ def phase_replay(rows: list[dict], captured: dict, suffix: str) -> None:
                     f"plain_ms_{suffix}": res["plain_ms"],
                     f"bound_ms_{suffix}": bnd["bound_ms"], f"bound_by_{suffix}": bnd["bound_by"]})
         _log_times(f"[replay] {key}", f"on the {suffix.replace('_', ' ')} ({what})", res, bnd)
+
+
+def _threads_sweep(head: str, sid, diag, cc: int, e: int, a: int) -> None:
+    """The block-lane filter tail on these slabs at every block size the
+    kernel has, each held against the plain version, timed by CUDA events
+    (warm, back to back): the evidence for the plan's choice
+    (ops/filter_tail.py:plan)."""
+    from fem_tpu_torch.ops.filter_tail import _filter_tail_cuda, filter_tail_plain, plan
+
+    want = filter_tail_plain(sid, diag, cc, e, a)
+    ms = {}
+    for T in (128, 256, 512, 1024):
+        run = lambda: _filter_tail_cuda(sid, diag, cc, e, a, threads=T)
+        got = run()
+        torch.cuda.synchronize()
+        check(max_abs_err(got, want) == 0, f"{head}: {T} threads a lane differ from plain")
+        ms[T] = round(cuda_ms(run, 20), 4)
+    log(f"{head} by threads a lane (the plan takes {plan(sid.shape[2], cc).threads}): "
+        f"{ms} ms warm by CUDA events")
 
 
 class Probe:
@@ -1591,7 +1623,7 @@ def _hold_call(name: str, key: str, args: list, kw: dict, row: str | None) -> di
     """One wrapper call captured from configuration `name`'s run, against its
     plain version on the same inputs (exact). With `row`, also timed and
     bounded as a kernel-table row, which is returned."""
-    from fem_tpu_torch.ops.filter_tail import filter_tail, filter_tail_plain
+    from fem_tpu_torch.ops.filter_tail import filter_tail, filter_tail_plain, plan
     from fem_tpu_torch.ops.verify import verify_candidates, verify_candidates_plain
 
     if key.startswith("filter_tail"):
@@ -1602,7 +1634,7 @@ def _hold_call(name: str, key: str, args: list, kw: dict, row: str | None) -> di
         what = f"NB={sid.shape[0]} G={sid.shape[1]} CAP={sid.shape[2]} CC={cc} e={e} a={a}"
         base = {"source": "fem_tpu_torch/csrc/filter_tail.cu",
                 "replaces": "fem_tpu/ops/filter_tail_pallas.py:213"}
-        timing = dict(plain_reps=3, cuda_name="filter_tail_kernel")
+        timing = dict(plain_reps=3, cuda_name=plan(sid.shape[2], cc).kernel)
     else:
         dindex, v_sid, v_pos, v_lane, both, lens, e = args
         used = kw["used"]

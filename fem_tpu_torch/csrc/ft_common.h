@@ -2,11 +2,12 @@
 // that the CPU tests run the kernels' exact per-lane arithmetic.
 //
 // The per-lane code is written once, as the scalar program of one thread
-// of a warp. Everything a warp does together goes through the few inline
-// functions below. On the card they are the shuffle, ballot and reduce
-// intrinsics; in the host build they hand the value to warp_emul
-// (warp_emul.h), which runs the 32 lanes of a warp as 32 coroutines in
-// lockstep, so the same source gives the same values.
+// of a warp or a block. Everything a warp or a block does together goes
+// through the few inline functions below. On the card they are the
+// shuffle, ballot and reduce intrinsics and __syncthreads; in the host
+// build they hand the value to warp_emul (warp_emul.h), which runs the
+// threads of a block as coroutines, each warp's 32 in lockstep, so the
+// same source gives the same values.
 #pragma once
 
 #include <stdint.h>
@@ -14,13 +15,17 @@
 
 #ifdef __CUDACC__
 #define FT_HD __device__ __forceinline__
+#define FT_HHD __host__ __device__ __forceinline__  // also the host's launch code
 #else
 #define FT_HD inline
+#define FT_HHD inline
 namespace warp_emul {
 // All 32 lanes call gather() at the same point of the program; each gets
 // the 32 values handed in, indexed by lane. lane() is the caller's lane.
 const uint64_t* gather(uint64_t mine);
 int lane();
+// Returns once every thread of the block has called it (__syncthreads).
+void barrier();
 }  // namespace warp_emul
 #endif
 
@@ -31,6 +36,7 @@ constexpr unsigned kFullWarp = 0xFFFFFFFFu;
 #ifdef __CUDACC__
 
 FT_HD void warp_sync() { __syncwarp(); }
+FT_HD void block_sync() { __syncthreads(); }
 FT_HD uint32_t warp_ballot(bool p) { return __ballot_sync(kFullWarp, p); }
 FT_HD uint32_t warp_or(uint32_t x) { return __reduce_or_sync(kFullWarp, x); }
 FT_HD int64_t warp_shfl(int64_t v, int src) {
@@ -58,6 +64,7 @@ FT_HD void load_quad(const int32_t* p, int32_t w[4]) {
 #else  // host emulation
 
 FT_HD void warp_sync() { warp_emul::gather(0); }
+FT_HD void block_sync() { warp_emul::barrier(); }
 FT_HD uint32_t warp_ballot(bool p) {
   const uint64_t* all = warp_emul::gather(p);
   uint32_t m = 0;

@@ -55,6 +55,8 @@ _lib = None
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _I64 = ctypes.c_int64
+_PI = ctypes.POINTER(ctypes.c_int)
+_PI64 = ctypes.POINTER(ctypes.c_int64)
 
 
 def reset_launches() -> None:
@@ -147,11 +149,13 @@ def library() -> ctypes.CDLL:
                 _P, _P, _I, _I, _I,  # both, lens, nb, lmax, e
                 _I, _P, _P, _P, _P,  # num_slots, used, ed, end, stream
             ]
+            lib.fem_filter_tail_plan.restype = _I
+            lib.fem_filter_tail_plan.argtypes = [_I, _I, _PI, _PI64]
             lib.fem_filter_tail.restype = _I
             lib.fem_filter_tail.argtypes = [
                 _P, _P, _I, _I, _I, _I, _I, _I,  # sid, diag, nb, G, cap, cc, e, a
                 _P, _P, _P,  # out_sid, out_pos, overflow
-                _P, _I, _P,  # workspace, its rows, stream
+                _P, _I, _I, _P,  # workspace, its rows, threads (0: the plan's), stream
             ]
             lib.fem_cuda_error_string.restype = ctypes.c_char_p
             lib.fem_cuda_error_string.argtypes = [_I]
@@ -171,13 +175,15 @@ def build_host_check(out_dir: str) -> ctypes.CDLL:
     compiled for the host, for the CPU tests. Raises on a compile error."""
     target = os.path.join(out_dir, "libfem_tpu_torch_host_check.so")
     compile_to(
-        ["g++", "-O2", "-std=c++17", "-Wall", "-Wno-unknown-pragmas", "-shared",
+        ["g++", "-O2", "-std=c++17", "-Wall", "-Wno-unknown-pragmas", "-U_FORTIFY_SOURCE", "-shared",
          "-fPIC", os.path.join(CSRC, "host_check.cpp")],
         target,
     )
     lib = ctypes.CDLL(target)
     lib.fem_host_filter_tail.restype = _I
-    lib.fem_host_filter_tail.argtypes = [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P]
+    lib.fem_host_filter_tail.argtypes = [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I]
+    lib.fem_host_filter_tail_plan.restype = _I
+    lib.fem_host_filter_tail_plan.argtypes = [_I, _I, _PI, _PI64]
     lib.fem_host_banded_myers.restype = None
     lib.fem_host_banded_myers.argtypes = [
         _P, _I64, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P,

@@ -10,7 +10,9 @@ carry to the next group; overflow marks a lane that kept more.
 
 `filter_tail` runs the CUDA kernel (csrc/filter_tail.cu) on a CUDA tensor,
 at any cap_cand + cap_occ (the retry tiers ask for thousands), and the
-plain torch version beside it on a CPU tensor. Layout as
+plain torch version beside it on a CPU tensor. Which of the kernel's
+programs a width takes, and the scratch it needs, is `plan`: one rule, in
+csrc/filter_tail_core.h, that this wrapper and the host build both ask. Layout as
 fem_tpu.ops.filter_tail_pallas: (NB, G, CAP) int32 in, invalid slots at
 (SENTINEL_SID, BIG); (NB, CC) int32 candidate lists out, ascending, with
 the sentinel in the tail slots, plus an (NB,) bool overflow.
@@ -18,16 +20,22 @@ the sentinel in the tail slots, plus an (NB,) bool overflow.
 
 from __future__ import annotations
 
+import ctypes
+from typing import NamedTuple
+
 import torch
 
 from fem_tpu_torch import kernels
 from fem_tpu_torch.ops.types import BIG, SENTINEL_SID
 
-# Widest cap_cand + cap_occ whose per-lane scratch the kernel keeps in
-# shared memory (csrc/filter_tail_core.h:kMaxSmemSlab); above it the wrapper
-# hands the kernel a global-memory workspace of WORKSPACE_ROWS lanes' scratch.
-SMEM_SLAB = 8192
-WORKSPACE_ROWS = 528  # lanes in flight there: four one-warp blocks an SM
+# The kernel's programs by route (csrc/filter_tail.cu), as the profiler
+# names them.
+KERNEL_NAMES = ("filter_tail_kernel", "filter_tail_block_kernel", "filter_tail_ws_kernel")
+WORKSPACE_ROUTE = 2
+# Rows of the workspace a width of route 2 gets, one a block of 1024
+# threads: one such block an SM is resident (its registers leave no room
+# for a second) on the H100's 132; each block walks over lanes.
+WORKSPACE_ROWS = 132
 _M32 = 0xFFFFFFFF
 _SENT_KEY = (SENTINEL_SID << 32) | BIG
 
@@ -73,7 +81,36 @@ def filter_tail_plain(
     return (cand >> 32).int(), (cand & _M32).int(), overflow
 
 
-def _filter_tail_cuda(sid, diag, cap_cand: int, e: int, a: int):
+class TailPlan(NamedTuple):
+    """Where the kernel runs a width (csrc/filter_tail_core.h:ft::plan)."""
+
+    route: int  # 0 a warp a lane, 1 a block a lane, 2 a block on a workspace row
+    threads: int  # threads a lane
+    words: int  # int64 words of a lane's scratch (block routes)
+
+    @property
+    def kernel(self) -> str:
+        return KERNEL_NAMES[self.route]
+
+    @property
+    def in_shared_memory(self) -> bool:
+        return self.route != WORKSPACE_ROUTE
+
+
+def plan(cap_occ: int, cap_cand: int, host_check=None) -> TailPlan:
+    """ft::plan of the width cap_cand + cap_occ, asked of the kernel library
+    (built on first use), or of `host_check`, the g++ build of the same
+    header (kernels.build_host_check)."""
+    ask = (kernels.library().fem_filter_tail_plan if host_check is None
+           else host_check.fem_host_filter_tail_plan)
+    threads, words = ctypes.c_int(), ctypes.c_int64()
+    route = ask(cap_occ, cap_cand, ctypes.byref(threads), ctypes.byref(words))
+    return TailPlan(route, threads.value, words.value)
+
+
+def _filter_tail_cuda(sid, diag, cap_cand: int, e: int, a: int, threads: int = 0):
+    """The kernel; `threads` sets a block lane's T (0: the plan's), for
+    timing the choice (tools/torch_tail_bench.py)."""
     NB, G, CAP = sid.shape
     out_sid = torch.empty((NB, cap_cand), dtype=torch.int32, device=sid.device)
     out_pos = torch.empty_like(out_sid)
@@ -81,15 +118,14 @@ def _filter_tail_cuda(sid, diag, cap_cand: int, e: int, a: int):
     if NB == 0:
         return out_sid, out_pos, overflow
     ws, ws_rows = None, 0
-    if cap_cand + CAP > SMEM_SLAB:
-        slab = 1 << (cap_cand + CAP - 1).bit_length()
+    p = plan(CAP, cap_cand)
+    if p.route == WORKSPACE_ROUTE:
         ws_rows = min(NB, WORKSPACE_ROWS)
-        ws = torch.empty(ws_rows * (2 * slab + cap_cand), dtype=torch.int64,
-                         device=sid.device)
+        ws = torch.empty(ws_rows * p.words, dtype=torch.int64, device=sid.device)
     rc = kernels.library().fem_filter_tail(
         sid.data_ptr(), diag.data_ptr(), NB, G, CAP, cap_cand, e, a,
         out_sid.data_ptr(), out_pos.data_ptr(), overflow.data_ptr(),
-        None if ws is None else ws.data_ptr(), ws_rows,
+        None if ws is None else ws.data_ptr(), ws_rows, threads,
         torch.cuda.current_stream(sid.device).cuda_stream,
     )
     kernels.check_launch(rc, "filter_tail")

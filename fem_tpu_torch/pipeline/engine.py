@@ -35,6 +35,7 @@ same collectives in the same order.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import os
 import threading
@@ -547,6 +548,7 @@ class MappingEngine:
         self.tier_dispatches = 0  # device steps at tier >= 1: the retry tax
         # a heavy-tailed genome pays (the reference's unbounded merge pays
         # none, src/filter.c:80-131)
+        self.dispatches_by_tier = collections.Counter()  # the same by tier
         # Stream-mode retry pool and completion watermark (for checkpoints).
         self._pool_lock = threading.Lock()
         self._retry_pool: list | None = None  # set inside map_stream
@@ -719,6 +721,7 @@ class MappingEngine:
         if tier > 0:
             with self._fallback_lock:
                 self.tier_dispatches += 1
+                self.dispatches_by_tier[tier] += 1
         Lmax = batch.codes.shape[1]
         if self.grid is not None:
             params = FilterParams.from_args(

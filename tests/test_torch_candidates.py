@@ -107,8 +107,15 @@ def host_check():
         yield kernels.build_host_check(d)
 
 
-def _host_tail(host_check, sid_m, diag_m, CC, e, a):
-    """The g++ build of the kernel's lane code on masked (NB, G, CAP) slabs."""
+# Threads of an emulated block lane (widths above 512); the card runs 256
+# or 1024 (ops/filter_tail.py:plan), the arithmetic is the same at any
+# multiple of 32, and fewer threads emulate faster.
+HOST_BLOCK_THREADS = 64
+
+
+def _host_tail(host_check, sid_m, diag_m, CC, e, a, threads=HOST_BLOCK_THREADS):
+    """The g++ build of the kernel's lane code on masked (NB, G, CAP) slabs:
+    a warp a lane up to CC + CAP = 512, a block of `threads` above."""
     import ctypes
 
     NB, G, CAP = sid_m.shape
@@ -118,7 +125,8 @@ def _host_tail(host_check, sid_m, diag_m, CC, e, a):
     ovf = np.empty(NB, np.uint8)
     vp = lambda x: x.ctypes.data_as(ctypes.c_void_p)
     rc = host_check.fem_host_filter_tail(
-        vp(sid_m), vp(diag_m), NB, G, CAP, CC, e, a, vp(out_sid), vp(out_pos), vp(ovf)
+        vp(sid_m), vp(diag_m), NB, G, CAP, CC, e, a, vp(out_sid), vp(out_pos), vp(ovf),
+        threads,
     )
     assert rc == 0
     return out_sid, out_pos, ovf.astype(bool)

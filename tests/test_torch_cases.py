@@ -94,18 +94,20 @@ TAIL_CASE_NAMES = [f"count_{n}" for n in TAIL_COUNTS] + list(TAIL_CHAINS)
 
 
 # ---- the retry tiers' wide slabs -------------------------------------------
-# cap_occ + cap_cand of the default ladder's tier 1 and tier 2 shapes (at a
-# smaller G where the slab is wide, to keep the plain version's loop short),
-# one between, and one above 8192, where the kernel's scratch leaves shared
-# memory for a workspace.
+# cap_occ + cap_cand of the default ladder's tier 1 and tier 2 shapes (5120 +
+# 4096 at the default G = 3; elsewhere a smaller G where the slab is wide, to
+# keep the plain version's loop short), two between, and one whose scratch
+# does not fit shared memory (ops/filter_tail.py:plan), so the kernel runs it
+# on a workspace.
 WIDE_SHAPES = {
     "tier1_640_512": dict(G=3, CAP=640, CC=512, e=5),
     "mid_2048_1024": dict(G=2, CAP=2048, CC=1024, e=5),
     "tier2_4096_4096": dict(G=2, CAP=4096, CC=4096, e=3),
+    "tier2_5120_4096": dict(G=3, CAP=5120, CC=4096, e=5),
     "workspace_8200_64": dict(G=2, CAP=8200, CC=64, e=5),
 }
 WIDE_COUNTS = (0, 1, 33, "half", "full")
-WIDE_CHAINS = ("gap_e", "gap_e_plus_1", "overflow_by_one", "fills_exactly")
+WIDE_CHAINS = ("gap_e", "gap_e_plus_1", "overflow_by_one", "fills_exactly", "evicted")
 WIDE_CASE_NAMES = [f"count_{n}" for n in WIDE_COUNTS] + list(WIDE_CHAINS)
 WIDE_LANES = 2  # lanes per case
 
@@ -136,6 +138,10 @@ def wide_chain_slabs(rng, shape, kind, NB=WIDE_LANES):
             split(b, start + (e + 1) * np.arange(CC + 1))
         elif kind == "fills_exactly":  # cap_cand kept keys, no overflow
             split(b, start + (e + 1) * np.arange(CC))
+        elif kind == "evicted":  # a full carried list, every key displaced
+            chain = start + 1 + 2 * (e + 1) * np.arange(min(CC, CAP))
+            put(b, 0, chain)  # kept, and the list full where CC <= CAP
+            put(b, 1, chain - 1)  # each one before a carried key, within e
     return masked(sid, diag, valid)
 
 

@@ -20,7 +20,7 @@ from fem_tpu.golden.model import GoldenMapper
 from fem_tpu_torch import kernels, sim
 from fem_tpu_torch.core.encoding import encode
 from fem_tpu_torch.io.fastx import ReadBatch
-from fem_tpu_torch.ops.filter_tail import filter_tail, filter_tail_plain
+from fem_tpu_torch.ops.filter_tail import WORKSPACE_ROWS, filter_tail, filter_tail_plain, plan
 from fem_tpu_torch.ops.types import BIG, SENTINEL_SID, device_index_from_host
 from fem_tpu_torch.ops.verify import verify_candidates, verify_candidates_plain
 from fem_tpu_torch.pipeline.engine import EngineConfig, MappingEngine, TierConfig
@@ -98,9 +98,9 @@ def test_filter_tail_kernel_eviction(cuda):
 @pytest.mark.parametrize("a", [0, 1, 2])
 @pytest.mark.parametrize("shape_name", list(WIDE_SHAPES))
 def test_filter_tail_kernel_wide_slabs(cuda, shape_name, a):
-    """The retry tiers' widths (scratch in shared memory, one warp a block)
-    and one above 8192 (scratch in a workspace): valid counts 0, 1, 33,
-    half, full, chains, exact fill and overflow by one."""
+    """The retry tiers' widths (a block a lane, scratch in shared memory)
+    and one whose scratch is a workspace: valid counts 0, 1, 33, half, full,
+    chains, exact fill, overflow by one and a displaced full list."""
     shape = WIDE_SHAPES[shape_name]
     cases = wide_tail_cases(shape)
     sid, diag = (torch.from_numpy(np.concatenate([cases[n][i] for n in WIDE_CASE_NAMES]))
@@ -116,18 +116,30 @@ def test_filter_tail_kernel_wide_slabs(cuda, shape_name, a):
 
 @pytest.mark.parametrize(
     "NB,G,CAP,CC",
-    [(1024, 3, 640, 512), (128, 3, 4096, 4096), (128, 3, 5120, 4096),
-     (700, 2, 9000, 64), (3, 1, 20000, 8)],
+    [(1024, 3, 640, 512), (300, 2, 1500, 500), (128, 3, 4096, 4096),
+     (128, 3, 5120, 4096), (256, 3, 2048, 1024), (700, 2, 9000, 64), (3, 1, 20000, 8)],
 )
 def test_filter_tail_kernel_wide_random(cuda, NB, G, CAP, CC):
-    """Dense random slabs at the default ladder's shapes; more lanes than
-    workspace rows (700 > 528), so blocks walk over several lanes."""
+    """Dense random slabs at the default ladder's shapes and at each block
+    size the launcher picks (256 and 1024 threads a lane); the workspace
+    widths with more lanes than workspace rows (700 > 132), so blocks walk
+    over several lanes."""
     sid, diag = (x.to(cuda) for x in _slabs(np.random.default_rng(CAP), NB, G, CAP,
                                             spread=3 * CAP))
     got = filter_tail(sid, diag, CC, 5, 1)
     torch.cuda.synchronize()
     for g, w in zip(got, filter_tail_plain(sid, diag, CC, 5, 1)):
         assert torch.equal(g, w)
+
+
+def test_filter_tail_plan_routes(cuda):
+    """The kernel library's plan: a warp a lane up to 512, a block of 256
+    threads up to 2048, 1024 above; the default tier 2 in shared memory."""
+    assert plan(80, 16)[:2] == (0, 32)
+    assert plan(640, 512)[:2] == (1, 256)
+    assert plan(1500, 500)[:2] == (1, 256)
+    assert plan(5120, 4096)[:2] == (1, 1024) and plan(5120, 4096).words * 8 == 213_248
+    assert plan(9000, 64)[:2] == (2, 1024) and 700 > WORKSPACE_ROWS
 
 
 def test_filter_tail_kernel_rejects_bad_input(cuda):

@@ -1,11 +1,12 @@
 """The filter tail at the retry tiers' widths, on the CPU.
 
 cap_cand + cap_occ of 640 + 512 (the default ladder's tier 1), 2048 + 1024,
-4096 + 4096 (tier 2) and one above 8192, where the CUDA kernel's scratch
-leaves shared memory for a workspace: the plain version == the g++ host
-build of the kernel's lane code (csrc/filter_tail_core.h through
-csrc/warp_emul.h) == fem_tpu's generate_candidates on its slab path, which
-is how fem_tpu runs these shapes. Integers only: exact equality.
+4096 + 4096, 5120 + 4096 (tier 2) and one whose scratch does not fit shared
+memory, so the CUDA kernel runs it on a workspace: the plain version == the
+g++ host build of the kernel's block lane code (csrc/filter_tail_core.h
+through csrc/warp_emul.h, an emulated block of 64 threads) == fem_tpu's
+generate_candidates on its slab path, which is how fem_tpu runs these
+shapes. Integers only: exact equality.
 """
 
 import functools
@@ -27,7 +28,7 @@ from fem_tpu.ops.candidates import generate_candidates as jgenerate
 from fem_tpu.ops.hashing import ambiguous_base_counts, reverse_complement, seed_hashes
 from fem_tpu_torch.ops import types as ttypes
 from fem_tpu_torch.ops.candidates import generate_candidates as tgenerate
-from fem_tpu_torch.ops.filter_tail import filter_tail, filter_tail_plain
+from fem_tpu_torch.ops.filter_tail import KERNEL_NAMES, filter_tail, filter_tail_plain, plan
 from tests.test_engine import _batch_from_reads
 from test_torch_candidates import _host_tail, host_check  # noqa: F401 (fixture)
 from test_torch_cases import WIDE_CASE_NAMES, WIDE_LANES, WIDE_SHAPES, wide_tail_cases
@@ -36,13 +37,34 @@ torch.set_num_threads(1)
 SENT = ttypes.SENTINEL_SID
 
 
+@pytest.mark.parametrize("cap,cc,route,threads,words", [
+    (80, 16, 0, 32, 0), (432, 80, 0, 32, 0),  # a warp a lane
+    (433, 80, 1, 256, 32 + 512 + 433 + 2 * 80 + 433),
+    (640, 512, 1, 256, 3360),  # tier 1: 26,880 bytes, eight lanes an SM
+    (2048, 1024, 1, 1024, 32 + 2048 + 2048 + 2 * 1024 + 2048),
+    (5120, 4096, 1, 1024, 26_656),  # tier 2: 213,248 bytes of 232,448
+    (8200, 64, 2, 1024, 32 + 16384 + 8200 + 2 * 64 + 8200),
+    (9000, 64, 2, 1024, 32 + 16384 + 9000 + 2 * 64 + 9000),
+    (20, 2000, 1, 256, 32 + 1010 + 1010 + 2 * 2000 + 20),  # the fold's int32 sizes S and V
+])
+def test_plan_routes(host_check, cap, cc, route, threads, words):
+    """ft::plan through the host build: which program, block size and
+    scratch a width takes on the card; the default tier 2 fits shared
+    memory, the workspace widths do not."""
+    got = plan(cap, cc, host_check)
+    assert got == (route, threads, words)
+    assert got.kernel == KERNEL_NAMES[route]
+    assert got.in_shared_memory == (words * 8 <= 232_448)
+
+
 @pytest.mark.parametrize("a", [0, 1, 2])
 @pytest.mark.parametrize("shape_name", list(WIDE_SHAPES))
 def test_kernel_lane_code_wide_slabs(host_check, shape_name, a):
-    """The retry tiers' widths and one above 8192 (the workspace path's):
-    host build of the lane code == plain version on valid counts 0, 1, 33,
-    half and full, chains of gaps e and e + 1, a list that fills exactly
-    and one that overflows by one key. All cases go through one call."""
+    """The retry tiers' widths and the workspace path's: host build of the
+    block lane code == plain version on valid counts 0, 1, 33, half and
+    full, chains of gaps e and e + 1, a list that fills exactly, one that
+    overflows by one key and a full list whose every key survivors displace.
+    All cases go through one call."""
     shape = WIDE_SHAPES[shape_name]
     cases = wide_tail_cases(shape)
     sid_m = np.concatenate([cases[n][0] for n in WIDE_CASE_NAMES])
@@ -65,6 +87,11 @@ def test_kernel_lane_code_wide_slabs(host_check, shape_name, a):
         assert (kept[lanes["fills_exactly"]] == CC).all()
         assert (kept[lanes["gap_e_plus_1"]] == CC // 2).all()
         assert (kept[lanes["gap_e"]] == min(CC, min(shape["CAP"], 400) // 2)).all()
+        ev = lanes["evicted"]
+        n_ev = min(CC, shape["CAP"])
+        assert (kept[ev] == n_ev).all() and not got[2][ev].any()
+        first = diag_m[ev, 0][sid_m[ev, 0] != SENT].reshape(WIDE_LANES, n_ev)
+        np.testing.assert_array_equal(got[1][ev, :n_ev], np.sort(first, axis=1) - 1)
     assert kept[lanes["count_full"]].all()
 
 
@@ -90,7 +117,7 @@ def heavy_world():
 
 
 @pytest.mark.parametrize("cap_occ,cap_cand",
-                         [(640, 512), (2048, 1024), (4096, 4096), (8200, 64)])
+                         [(640, 512), (2048, 1024), (4096, 4096), (5120, 4096), (8200, 64)])
 def test_generate_candidates_wide_matches_jax_slab_path(
         host_check, heavy_world, monkeypatch, cap_occ, cap_cand):
     """At tier shapes fem_tpu leaves its Pallas kernel for its slab path

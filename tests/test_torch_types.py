@@ -115,6 +115,8 @@ def test_port_sources_name_no_fem_tpu_import():
     parallel = os.path.join(_REPO, "fem_tpu_torch", "parallel")
     for name in ("mesh.py", "sharded_index.py", "multihost.py"):
         assert os.path.join(parallel, name) in files, name
+    for name in ("torch_soak.py", "torch_tail_bench.py"):
+        assert os.path.join(_REPO, "tools", name) in files, name
     bad = [f for f in files if pat.search(open(f).read())]
     assert not bad, bad
 
