@@ -34,6 +34,10 @@ exits non-zero without its result line:
               and at 12288 + 4096 (scratch in a global-memory workspace):
               equality. Which program a width takes is the wrapper's
               `plan` (csrc/filter_tail_core.h:ft::plan), read here too.
+              Banded Myers over a 2.2 GB flat reference on the card (code 4
+              throughout) whose chromosome is written past byte 2^31, as
+              the 3 Gb genome's last chromosomes lie: exactly equal to the
+              plain version at e = 5 and 7.
   5. main     the engine on the card through the pipelined
               MappingEngine.map_stream (depth EngineConfig.pipeline_depth)
               with the default retry ladder, twice:
@@ -136,6 +140,21 @@ exits non-zero without its result line:
               counter passes 2^32); retried reads, dispatches by tier,
               host-mapped reads, the keys captured and their capture
               times printed.
+  11. scale   tools/torch_grch38_scale.py as a process of its own, cut to
+              0.25 Gb and 20,000 reads: the GRCh38 profile's 24 chromosomes,
+              `python -m fem_tpu_torch index 12 3` byte-equal to
+              fem_baseline's, `map -e 5 -a 1` at the command line's
+              defaults (B=10,000, 256 + 256, 16 verify slots a lane)
+              unsharded and on a (1, 4) grid on cuda:0, each equal to
+              fem_baseline in records and counters and to the golden
+              oracle on the first 64 reads, both kernels launched; a line a
+              stage (seconds, peak host RSS, peak device memory, retries,
+              launches by shape, each shard's occurrences). Then the
+              unsharded map's first batch again in this process with the
+              eager step: the filter tail's call at 256 + 256 over 20,000
+              lanes and Myers' at 320,000 slots, held against their plain
+              versions and timed, rows of their own whose launches are the
+              tool's map's count at that shape.
 
 Each kernel's bound is the least time the card could take for the same
 inputs: the bytes it must move (inputs once, outputs once) over 3.35 TB/s,
@@ -188,6 +207,15 @@ TIER2_VERIFY_SLOTS = 262_144
 # (2 * B * verify_per_read, as many as tier 2's but over 2 * B lanes).
 ADV_TAIL = (80, 64)
 ADV_VERIFY_SLOTS = 262_144
+# Phase 11: tools/torch_grch38_scale.py cut to 0.25 Gb and 20,000 reads; its
+# maps run the command line's defaults.
+SCALE_ARGS = ["--gb", "0.25", "--reads", "20000"]
+SCALE_BATCH = 10_000
+SCALE_TAIL = (256, 256)
+SCALE_VERIFY_SLOTS = 2 * SCALE_BATCH * 16
+# Phase 4: a flat reference of 2.2 GB whose chromosome starts past byte 2^31.
+FAR_REF_BYTES = 2_200_000_000
+FAR_OFFSET = 2**31 + 12_345
 # Which launches a row of the kernel table counts: the kernel, a test of
 # the shape kernels.count_launch was given, and the main path it is read on.
 ROW_LAUNCHES = {
@@ -213,6 +241,11 @@ ROW_LAUNCHES = {
                              "configs_e7_len150"),
     "banded_myers_lmax96": ("banded_myers", lambda s: s == (4 * BATCH, 2 * BATCH),
                             "configs_len76_step2"),
+    # Phase 11's unsharded map at the command line's defaults: B = 10,000,
+    # cap_occ 256 + cap_cand 256, 16 verify slots a read-strand lane.
+    "filter_tail_scale": ("filter_tail", lambda s: s == SCALE_TAIL, "scale"),
+    "banded_myers_scale": ("banded_myers",
+                           lambda s: s == (SCALE_VERIFY_SLOTS, 2 * SCALE_BATCH), "scale"),
 }
 
 
@@ -565,7 +598,7 @@ def phase_kernels(ref, index, dev) -> list[dict]:
             check(d == 0, f"banded_myers differs from its plain version at Lmax {Lmax}")
             check(0 < n_acc < V, f"banded_myers check at Lmax {Lmax} accepts all or none")
             err = max(err, d)
-    row["max_abs_err"] = max(err, row["max_abs_err"])
+    row["max_abs_err"] = max(err, row["max_abs_err"], _myers_past_2_31(ref, rng, dev))
     rows.append(row)
     _log_times("[kernels] banded_myers", f"at e={E}", row, row)
 
@@ -604,6 +637,43 @@ def phase_kernels(ref, index, dev) -> list[dict]:
     rows += _adversarial_rows(ref, dindex, rng, dev)
     rows += _tier_rows(ref, dindex, rng, dev)
     return rows
+
+
+def _myers_past_2_31(ref, rng, dev) -> int:
+    """Banded Myers over a flat reference of FAR_REF_BYTES (a filler of code
+    4 on the card) whose one chromosome, the benign genome's, is written at
+    byte FAR_OFFSET, past 2^31: the windows the 3 Gb genome's last
+    chromosomes give. Exactly equal to the plain version at e = 5 and 7, on
+    the main path's 65,536 slots. Returns the largest difference (0)."""
+    from fem_tpu_torch.ops.types import DeviceIndex
+    from fem_tpu_torch.ops.verify import verify_candidates, verify_candidates_plain
+
+    L0 = int(ref.lengths[0])
+    flat = torch.full((FAR_REF_BYTES,), 4, dtype=torch.uint8, device=dev)
+    flat[FAR_OFFSET : FAR_OFFSET + L0] = torch.from_numpy(ref.codes_of(0)).to(dev)
+    empty = torch.zeros(1, dtype=torch.int64, device=dev)
+    far = DeviceIndex(occ=empty, lookup=empty, freq_table=empty.int(), ref_flat=flat,
+                      ref_offsets=torch.tensor([FAR_OFFSET], dtype=torch.int64, device=dev),
+                      ref_lengths=torch.tensor([L0], dtype=torch.int32, device=dev),
+                      num_occurrences=0)
+    err = 0
+    for e in (E, 7):
+        args = _myers_inputs(ref, e, rng, dev)
+        got = verify_candidates(far, *args, e)
+        want = verify_candidates_plain(far, *args, e)
+        torch.cuda.synchronize()
+        d = max_abs_err(got, want)
+        n_acc = int(want.accepted.sum())
+        last = FAR_OFFSET + int(args[1].max()) + args[3].shape[1] + 2 * e
+        log(f"[kernels] banded_myers e={e} V={args[0].shape[0]} over a {FAR_REF_BYTES:,}-byte "
+            f"reference, windows at bytes {FAR_OFFSET + int(args[1].min()):,} to {last:,} "
+            f"(2^31 = {2**31:,}): max_abs_err {d}, {n_acc} accepted")
+        check(d == 0, f"banded_myers differs from its plain version past byte 2^31 at e={e}")
+        check(0 < n_acc < args[0].shape[0], "banded_myers past 2^31 accepts all or none")
+        err = max(err, d)
+    del flat, far
+    torch.cuda.empty_cache()
+    return err
 
 
 def _clustered_slabs(rng, NB: int, G: int, CAP: int, dev):
@@ -1758,6 +1828,109 @@ def phase_configs(workdir: str, seqs, benign_paths: dict) -> tuple[dict, list]:
     return out, rows
 
 
+def phase_scale(workdir: str) -> tuple[dict, list]:
+    """tools/torch_grch38_scale.py at SCALE_ARGS as a process of its own (the
+    GRCh38 profile's 24 chromosomes, the index through the command line
+    byte-equal to fem_baseline's, the unsharded map and the (1, 4) grid on
+    cuda:0 equal to fem_baseline, the golden oracle's prefix), then the
+    kernels at the unsharded map's own inputs: its first batch mapped again
+    here with the eager step, the filter tail's call at 256 + 256 and Myers'
+    at 320,000 slots held against their plain versions and timed. A row's
+    launches are the tool's unsharded map's count at its shape (a process
+    of its own, whose counts start at 0)."""
+    from fem_tpu_torch.config import FemArgs
+    from fem_tpu_torch.index.storage import load_index
+    from fem_tpu_torch.io import fastx
+    from fem_tpu_torch.ops.filter_tail import filter_tail, filter_tail_plain, plan
+    from fem_tpu_torch.ops.verify import verify_candidates, verify_candidates_plain
+    from fem_tpu_torch.pipeline.engine import EngineConfig, MappingEngine
+
+    t_phase = time.perf_counter()
+    d = os.path.join(workdir, "scale")
+    p = subprocess.run([sys.executable, os.path.join(REPO, "tools", "torch_grch38_scale.py"),
+                        *SCALE_ARGS, "--workdir", d, "--keep"],
+                       env=_child_env(), capture_output=True, text=True, timeout=900)
+    out = p.stdout.strip().splitlines()
+    for line in out[:-1]:
+        log(line if line.startswith("[scale]") else f"[scale] {line}")
+    check(p.returncode == 0 and out, f"torch_grch38_scale failed (rc {p.returncode}): "
+          f"{p.stdout[-3000:]}{p.stderr[-3000:]}")
+    summary = json.loads(out[-1])
+    stages = {st["stage"]: st for st in summary["stages"]}
+    check(summary["ok"] and {"map", "map_grid"} <= set(stages),
+          f"torch_grch38_scale: {[(st['stage'], st['ok']) for st in summary['stages']]}")
+    for name in ("map", "map_grid"):
+        st = stages[name]
+        check(st["records_equal"] and st["counters_equal"] and st["golden_equal"]
+              and all(n > 0 for n in st["kernel_launches"].values()),
+              f"scale {name}: not equal to fem_baseline, or a kernel never launched")
+    check(len(stages["map_grid"]["cells"]) == 4, "scale: the grid is not (1, 4)")
+    tail = {tuple(int(x) for x in k.split("+")): n
+            for k, n in stages["map"]["launches_by_shape"]["filter_tail"].items()}
+    myers = {tuple(int(x) for x in k.split("x")): n
+             for k, n in stages["map"]["launches_by_shape"]["banded_myers"].items()}
+    run = {"tail_shapes": tail, "myers_shapes": myers}
+
+    # The kernels on the unsharded map's own inputs.
+    ref = fastx.read_fasta(os.path.join(d, "ref.fa"))
+    index = load_index(os.path.join(d, "ref.index"))
+    engine = MappingEngine(FemArgs(error_threshold=E, num_additional_qgrams=A), ref, index,
+                           EngineConfig())
+    check((engine.config.batch_size, engine.config.cap_occ, engine.config.cap_cand)
+          == (SCALE_BATCH, *SCALE_TAIL)
+          and engine._caps(engine._tier(0))[0] == SCALE_VERIFY_SLOTS,
+          "scale: the command line's defaults are not the rows' shapes")
+    engine.eager_step = True
+    probe = Probe(engine)
+    probe.capture = {
+        "filter_tail_scale": lambda attr, a: attr == "filter_tail"
+        and (a[0].shape[2], a[2]) == SCALE_TAIL,
+        "banded_myers_scale": lambda attr, a: attr == "verify_candidates"
+        and a[1].shape[0] == SCALE_VERIFY_SLOTS}
+    engine.map_batch(next(fastx.stream_fastq_batches(os.path.join(d, "reads.fq"),
+                                                     batch_size=SCALE_BATCH)))
+    probe.close()
+    check(set(probe.captured) == set(probe.capture),
+          f"scale: captured inputs of {sorted(probe.captured)} only")
+    rows = []
+    (sid, diag, cc, e, a), _ = probe.captured["filter_tail_scale"]
+    row = {"name": "filter_tail_scale", "route": "cuda",
+           "source": "fem_tpu_torch/csrc/filter_tail.cu",
+           "replaces": "fem_tpu/ops/filter_tail_pallas.py:213", "library_ms": None}
+    row.update(compare_and_time(
+        "filter_tail", "the scale map's own slabs",
+        lambda: filter_tail(sid, diag, cc, e, a),
+        lambda: filter_tail_plain(sid, diag, cc, e, a), 2, 3,
+        cuda_name=plan(sid.shape[2], cc).kernel))
+    bnd, note = tail_bound(sid, diag, cc)
+    row.update(bnd)
+    rows.append(row)
+    log(f"[scale] filter_tail NB={sid.shape[0]} G={sid.shape[1]} CAP={sid.shape[2]} CC={cc} "
+        f"e={e} a={a} ({plan(sid.shape[2], cc).kernel}), the unsharded map's own slabs: {note}")
+    _log_times("[scale] filter_tail_scale", "own slabs", row, row)
+    (dindex, v_sid, v_pos, v_lane, both, lens, e), kw = probe.captured["banded_myers_scale"]
+    used = kw["used"]
+    row = {"name": "banded_myers_scale", "route": "cuda",
+           "source": "fem_tpu_torch/csrc/banded_myers.cu",
+           "replaces": "fem_tpu/ops/verify_pallas.py:122", "library_ms": None}
+    row.update(compare_and_time(
+        "banded_myers", "the scale map's own slots",
+        lambda: verify_candidates(dindex, v_sid, v_pos, v_lane, both, lens, e, used=used),
+        lambda: verify_candidates_plain(dindex, v_sid, v_pos, v_lane, both, lens, e, used=used),
+        2, 3))
+    bnd, note = myers_bound(v_sid, v_pos, v_lane, both, lens, e, used)
+    row.update(bnd)
+    rows.append(row)
+    log(f"[scale] banded_myers V={v_sid.shape[0]} Lmax={both.shape[1]} e={e}, the unsharded "
+        f"map's own slots: {note}")
+    _log_times("[scale] banded_myers_scale", "own slots", row, row)
+    del engine, probe, dindex
+    torch.cuda.empty_cache()
+    log(f"[scale] phase 11: {time.perf_counter() - t_phase:.1f} s (the tool "
+        f"{summary['seconds']:.1f} s)")
+    return run, rows
+
+
 def main() -> int:
     from fem_tpu_torch.pipeline.engine import EngineConfig
 
@@ -1816,7 +1989,11 @@ def main() -> int:
                                               adversarial["fallback"], dev)
         lap("phase 9")
         sweep_runs, sweep_rows = phase_configs(workdir, benign_seqs, benign_paths)
-    rows += grid_rows + sweep_rows
+        lap("phase 10")
+        del benign_seqs
+        scale_run, scale_rows = phase_scale(workdir)
+        lap("phase 11")
+    rows += grid_rows + sweep_rows + scale_rows
     check(adversarial["retried"] > 0, "adversarial: no read was retried")
     check(any(cap + cc > 512 for cap, cc in adversarial["tail_shapes"]),
           "adversarial: filter_tail never launched above cap_cand + cap_occ = 512")
@@ -1829,7 +2006,7 @@ def main() -> int:
     # A row of phase 10 is read on its configuration's counted run only: the
     # shape of a count names no Lmax, e or a.
     runs = {"benign": benign, "adversarial": adversarial, **grid_runs}
-    paths = {**runs, **{f"configs_{n}": r for n, r in sweep_runs.items()}}
+    paths = {**runs, **{f"configs_{n}": r for n, r in sweep_runs.items()}, "scale": scale_run}
     check({r["name"] for r in rows} == set(ROW_LAUNCHES), "a row without a launch count")
     for row in rows:
         kernel, at_shape, path = ROW_LAUNCHES[row["name"]]

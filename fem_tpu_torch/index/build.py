@@ -8,9 +8,9 @@ and each hash bucket's positions are sorted ascending (src/index.c:74,93);
 counts prefix-sum into the 4^k+1 CSR lookup table.
 
 This implementation is vectorized numpy instead of a scalar loop + radix
-sort. Because entries are generated in (seqid, position) ascending order, a
-single stable argsort by hash leaves every bucket's locations ascending —
-the same final layout the reference reaches with its two radix sorts.
+sort: one sort of (hash, window number) keys leaves every bucket's
+locations ascending — the same final layout the reference reaches with its
+two radix sorts (build_index says how).
 
 The port's copy of fem_tpu/index/build.py.
 """
@@ -41,7 +41,6 @@ def hash_windows(codes: np.ndarray, kmer_size: int, positions: np.ndarray) -> np
     build recorded in docs/SCALE.md). Non-uniform positions (unit tests,
     arbitrary probes) take the gather path.
     """
-    c4 = np.where(codes > 3, 0, codes).astype(np.int32)
     m = positions.shape[0]
     if m >= 2:
         step = int(positions[1] - positions[0])
@@ -52,12 +51,8 @@ def hash_windows(codes: np.ndarray, kmer_size: int, positions: np.ndarray) -> np
         uniform = m == 1
         step = 1
     if uniform and m:
-        lo = int(positions[0])
-        hi = lo + int(positions[-1] - positions[0]) + 1
-        acc = np.zeros(m, np.int32)
-        for j in range(kmer_size):
-            acc = (acc << 2) | c4[lo + j : hi + j : step]
-        return acc.astype(np.uint32)
+        return _hash_strided(codes[int(positions[0]) :], kmer_size, step, m)
+    c4 = np.where(codes > 3, 0, codes).astype(np.int32)
     weights = (1 << (2 * np.arange(kmer_size - 1, -1, -1, dtype=np.int64))).astype(
         np.int32
     )
@@ -70,37 +65,71 @@ def hash_windows(codes: np.ndarray, kmer_size: int, positions: np.ndarray) -> np
     return out
 
 
-def build_index(reference: Reference, kmer_size: int, step_size: int) -> FemIndex:
-    all_hashes = []
-    all_locations = []
-    for sid in range(reference.num_seqs):
-        length = int(reference.lengths[sid])
-        if length < kmer_size:
-            continue
-        positions = np.arange(0, length - kmer_size + 1, step_size, dtype=np.int64)
-        hashes = hash_windows(reference.codes_of(sid), kmer_size, positions)
-        all_hashes.append(hashes)
-        all_locations.append((np.uint64(sid) << np.uint64(32)) | positions.astype(np.uint64))
-    if all_hashes:
-        hashes = np.concatenate(all_hashes)
-        locations = np.concatenate(all_locations)
-    else:
-        hashes = np.empty(0, dtype=np.uint32)
-        locations = np.empty(0, dtype=np.uint64)
+def _hash_strided(codes: np.ndarray, kmer_size: int, step: int, m: int) -> np.ndarray:
+    """hash_windows at positions 0, step, ..., (m - 1) * step: k shift-or
+    passes over strided slices, in place in one uint32 array."""
+    c4 = np.where(codes > 3, np.uint8(0), codes)
+    span = (m - 1) * step + 1
+    acc = np.zeros(m, np.uint32)
+    for j in range(kmer_size):
+        acc <<= np.uint32(2)
+        acc |= c4[j : j + span : step]
+    return acc
 
-    # Stable sort by hash; original order is (seqid, position) ascending, so
-    # every bucket's locations come out ascending (matches src/index.c:93).
-    order = np.argsort(hashes, kind="stable")
-    occurrences = locations[order]
+
+def build_index(reference: Reference, kmer_size: int, step_size: int) -> FemIndex:
+    """The index of every `step_size`-th k-mer window of every chromosome.
+
+    Window w (numbered in (seqid, position) order) becomes the key
+    hash << 32 | w; keys are unique, so one ascending sort of them orders
+    the windows by hash and, within a bucket, by (seqid, position): the
+    layout of a stable sort by hash (src/index.c:74,93), reached with an
+    in-place sort of one uint64 array instead of an indirect stable
+    argsort, which dominated the build at GRCh38 scale (docs/SCALE.md r5)
+    and needs an index array beside the hashes. The CSR offsets are the first key of
+    each bucket, found by binary search; each window's (seqid, position)
+    comes back from w (a table of seqids a window, then arithmetic).
+    Besides the reference, the build holds the keys and the occurrence
+    table, 8 bytes a window each, and the seqid table, 1 byte a window
+    while there are at most 256 sequences."""
+    lengths = [int(n) for n in reference.lengths]
+    counts = np.array([len(range(0, n - kmer_size + 1, step_size)) if n >= kmer_size else 0
+                       for n in lengths], np.int64)
+    wstart = np.zeros(len(lengths) + 1, np.int64)  # first window of each seqid
+    np.cumsum(counts, out=wstart[1:])
+    total = int(wstart[-1])
+    check_u32_csr(total)  # window numbers fit the key's low 32 bits below
+
+    keys = np.empty(total, np.uint64)
+    for sid, m in enumerate(counts):
+        if not m:
+            continue
+        k = keys[wstart[sid] : wstart[sid] + m]
+        k[:] = _hash_strided(reference.codes_of(sid), kmer_size, step_size, int(m))
+        k <<= np.uint64(32)
+        k |= np.arange(wstart[sid], wstart[sid] + m, dtype=np.uint64)
+    keys.sort()
+    # The seqid of every window, in the smallest type that holds them all.
+    sid_of = np.repeat(np.arange(len(lengths), dtype=np.min_scalar_type(len(lengths))), counts)
 
     num_buckets = 1 << (2 * kmer_size)
-    counts = np.bincount(hashes.astype(np.int64), minlength=num_buckets).astype(
-        np.uint64
-    )
-    lookup = np.zeros(num_buckets + 1, dtype=np.uint64)
-    np.cumsum(counts, out=lookup[1:])
-    check_u32_csr(int(lookup[-1]))
-    return FemIndex(kmer_size, step_size, lookup.astype(np.uint32), occurrences)
+    lookup = np.empty(num_buckets + 1, np.uint32)
+    for lo in range(0, num_buckets, _CHUNK):
+        hs = np.arange(lo, min(lo + _CHUNK, num_buckets), dtype=np.uint64) << np.uint64(32)
+        lookup[lo : lo + hs.shape[0]] = np.searchsorted(keys, hs)
+    lookup[num_buckets] = total
+
+    # Window w of seqid s at position (w - wstart[s]) * step: its occurrence
+    # s << 32 | pos is w * step + base[s], base[s] = s << 32 - wstart[s] * step.
+    base = (np.arange(len(lengths), dtype=np.int64) << 32) - wstart[:-1] * step_size
+    occurrences = np.empty(total, np.uint64)
+    for lo in range(0, total, _CHUNK):
+        w = (keys[lo : lo + _CHUNK] & np.uint64(0xFFFFFFFF)).view(np.int64)
+        occ = base[sid_of[w]]
+        w *= step_size
+        occ += w
+        occurrences[lo : lo + w.shape[0]] = occ.view(np.uint64)
+    return FemIndex(kmer_size, step_size, lookup, occurrences)
 
 
 def check_u32_csr(total_occurrences: int) -> None:

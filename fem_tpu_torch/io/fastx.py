@@ -21,7 +21,7 @@ from typing import Iterator, List
 
 import numpy as np
 
-from fem_tpu_torch.core.encoding import encode
+from fem_tpu_torch.core.encoding import CHAR_TO_CODE, encode
 
 
 @dataclasses.dataclass
@@ -203,12 +203,50 @@ class Reference:
         return self.flat_codes[off : off + int(self.lengths[i])]
 
 
-def read_fasta(path: str, gap: int = 256) -> Reference:
+def seqs_blob(reference: Reference) -> tuple[bytes, np.ndarray]:
+    """Every sequence of `reference` joined into one bytes object, and the
+    (S + 1,) int64 offsets of each in it: made once a reference and shared
+    by the native emitter and host mapper (3 GB at GRCh38 scale)."""
+    blob = getattr(reference, "_seqs_blob", None)
+    if blob is None:
+        offsets = np.zeros(len(reference.seqs) + 1, np.int64)
+        np.cumsum([len(s) for s in reference.seqs], out=offsets[1:])
+        blob = reference._seqs_blob = (b"".join(reference.seqs), offsets)
+    return blob
+
+
+def _fasta_records(path: str) -> tuple[List[bytes], List[bytes]]:
+    """Names and sequences of a FASTA file, as `iter_fastx` parses them,
+    read whole: each record's lines are joined by one bytes.replace
+    instead of a Python loop over its lines (a 3 Gb genome has ~38 M).
+    A record holding a carriage return takes the line rules of
+    `_iter_fasta` (strip trailing CR/LF a line); a file that is not FASTA
+    goes through `iter_fastx`."""
+    with _open(path) as f:
+        if f.peek(1)[:1] != b">":
+            recs = list(iter_fastx(path))
+            return [r.name for r in recs], [r.seq for r in recs]
+        data = f.read()
     names: List[bytes] = []
     seqs: List[bytes] = []
-    for rec in iter_fastx(path):
-        names.append(rec.name)
-        seqs.append(rec.seq)
+    start, n = 0, len(data)
+    while start < n:  # data[start] is the '>' of a header line
+        eol = data.find(b"\n", start)
+        eol = n if eol < 0 else eol
+        names.append(_split_name(data[start + 1 : eol].rstrip(b"\r\n"))[0])
+        nxt = data.find(b"\n>", eol)
+        end = n if nxt < 0 else nxt + 1
+        body = data[eol + 1 : end]
+        if b"\r" in body:
+            seqs.append(b"".join(line.rstrip(b"\r\n") for line in body.split(b"\n")))
+        else:
+            seqs.append(body.replace(b"\n", b""))
+        start = end
+    return names, seqs
+
+
+def read_fasta(path: str, gap: int = 256) -> Reference:
+    names, seqs = _fasta_records(path)
     lengths = np.array([len(s) for s in seqs], dtype=np.int64)
     offsets = np.zeros(len(seqs), dtype=np.int64)
     pos = gap
@@ -216,9 +254,10 @@ def read_fasta(path: str, gap: int = 256) -> Reference:
         offsets[i] = pos
         pos += int(n) + gap
     flat = np.full(pos, 4, dtype=np.uint8)
+    codes = CHAR_TO_CODE.tobytes()  # encode() as one bytes.translate
     for i, s in enumerate(seqs):
         off = int(offsets[i])
-        flat[off : off + len(s)] = encode(s)
+        flat[off : off + len(s)] = np.frombuffer(s.translate(codes), np.uint8)
     return Reference(names, seqs, lengths, offsets, flat)
 
 

@@ -9,6 +9,7 @@ from typing import Sequence
 
 import numpy as np
 
+from fem_tpu_torch.io import fastx
 from fem_tpu_torch.io.fastx import Reference
 from fem_tpu_torch.native.build import native_library
 
@@ -56,7 +57,7 @@ class NativeEmitter:
     def __init__(self, reference: Reference, error_threshold: int):
         self._lib = _native()
         self._e = error_threshold
-        self._ref_blob, self._ref_offsets = _blob(reference.seqs)
+        self._ref_blob, self._ref_offsets = fastx.seqs_blob(reference)
         self._ref_lens = reference.lengths.astype(np.int64)
         self._ref_names_blob, self._ref_name_offsets = _blob(reference.names)
         self._num_refs = reference.num_seqs

@@ -11,6 +11,7 @@ from typing import List, Tuple
 import numpy as np
 
 from fem_tpu_torch.index.storage import FemIndex
+from fem_tpu_torch.io import fastx
 from fem_tpu_torch.io.fastx import Reference
 from fem_tpu_torch.native.build import native_library
 
@@ -61,7 +62,7 @@ class NativeCpuMapper:
         # volume is ~0.2% of reads; serialization costs nothing.
         self._lock = threading.Lock()
         # Keep every buffer alive for the handle's lifetime.
-        self._ref_blob, self._ref_offsets = _blob(reference.seqs)
+        self._ref_blob, self._ref_offsets = fastx.seqs_blob(reference)
         self._names_blob, self._name_offsets = _blob(reference.names)
         self._lookup = np.ascontiguousarray(index.lookup, np.uint32)
         self._occ = np.ascontiguousarray(index.occurrences, np.uint64)

@@ -4,7 +4,9 @@ Layout on a GPU (the TPU layouts of fem_tpu/ops/types.py are gather
 workarounds and are not carried over):
   * occurrences as one flat int64 key ``sid << 32 | pos`` in CSR order —
     exactly the index file's occurrence table (src/index.h:22-28);
-  * the CSR offsets (4^k + 1) and the 4^k frequency table, int32;
+  * the CSR offsets (4^k + 1) as int64, since an index may hold up to
+    2^32 - 1 occurrences (the u32 offsets of the index file), and the 4^k
+    frequency table as int32 (a bucket holds at most genome / step);
   * the reference as one flat uint8 code array with the 256-base sentinel
     gaps of fastx.read_fasta between and after the chromosomes, so a
     banded window near a boundary reads sentinels, never a neighbour.
@@ -37,7 +39,7 @@ BIG = 2**30
 @dataclasses.dataclass
 class DeviceIndex:
     occ: torch.Tensor  # (N,) int64 sid << 32 | pos
-    lookup: torch.Tensor  # (4^k + 1,) int32 CSR offsets into occ
+    lookup: torch.Tensor  # (4^k + 1,) int64 CSR offsets into occ
     freq_table: torch.Tensor  # (4^k,) int32 lookup[h+1] - lookup[h]
     ref_flat: torch.Tensor  # (T,) uint8 codes with sentinel gaps
     ref_offsets: torch.Tensor  # (S,) int64 chromosome starts in ref_flat
@@ -65,7 +67,7 @@ def _device_index(occ, lookup, ref_flat, ref_offsets, ref_lengths, device,
     """The tensors on `device`. A whole index derives `freq_table` and
     `num_occurrences` from its own CSR; a shard passes the global ones, and
     its `own_start`, `own_end` and `halo_lo`."""
-    lookup = np.asarray(lookup).astype(np.int32)
+    lookup = np.asarray(lookup, np.int64)
     as_t = lambda x: torch.tensor(np.ascontiguousarray(x), device=device)
     if freq_table is None:
         freq_table = np.diff(lookup)
@@ -102,7 +104,7 @@ def device_index_from_host(
     index: FemIndex, reference: Reference, device: torch.device | str
 ) -> DeviceIndex:
     return _device_index(
-        index.occurrences.astype(np.uint64), index.lookup,
+        np.asarray(index.occurrences, np.uint64), index.lookup,
         reference.flat_codes, reference.offsets, reference.lengths, device,
     )
 

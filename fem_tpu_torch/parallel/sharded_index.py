@@ -34,6 +34,7 @@ from fem_tpu_torch.ops.types import DeviceIndex, device_index_shard
 from fem_tpu_torch.parallel.mesh import DeviceMesh, map_grid
 
 _ROW_BYTES = 64  # the slices' padding rule, kept so they equal the JAX build's
+_CHUNK = 1 << 26  # occurrences a pass of the sharded build takes at a time
 
 
 @dataclasses.dataclass
@@ -43,7 +44,7 @@ class ShardedIndex:
     num_shards: int
     ranges: List[List[tuple]]  # per shard: [(sid, start, end)] owned ranges
     halo: int  # occurrence/reference overlap beyond owned ranges (bases)
-    lookup: np.ndarray  # (n, 4^k + 1) int32 local CSR
+    lookup: np.ndarray  # (n, 4^k + 1) int64 local CSR
     occ: List[np.ndarray]  # per shard: (N_s,) uint64 sid << 32 | pos, CSR order
     ref_flat: List[np.ndarray]  # per shard: (T_s,) uint8 slice with sentinel gaps
     ref_offsets: np.ndarray  # (n, num_seqs) int64: ref_flat[s][off + p] = chrom[p]
@@ -138,38 +139,53 @@ def build_sharded_index(
     shard_ranges = partition_ranges(lengths, num_shards)
     num_seqs = reference.num_seqs
 
-    occ_all = np.asarray(index.occurrences, np.uint64)
-    sid_all = (occ_all >> np.uint64(32)).astype(np.int64)
-    pos_all = (occ_all & np.uint64(0xFFFFFFFF)).astype(np.int64)
-    nbuckets = index.lookup.shape[0] - 1
-    hash_of = np.repeat(
-        np.arange(nbuckets, dtype=np.int64), np.diff(index.lookup.astype(np.int64)))
-    # Shard membership by concatenated-genome coordinate: two compares per
-    # occurrence per shard. The window may pull in a neighbouring
-    # chromosome's tail or head where a cut abuts a chromosome boundary:
-    # harmless, those candidates are never owned, and a carry of another
-    # sid never suppresses a kept candidate in the greedy fold.
-    bounds = np.concatenate([[0], np.cumsum(lengths)])
-    gpos = bounds[sid_all] + pos_all
-    total = int(lengths.sum())
-
     own_start = np.zeros((num_shards, num_seqs), np.int32)
     own_end = np.zeros((num_shards, num_seqs), np.int32)
     halo_lo = np.full((num_shards, num_seqs), 2**30, np.int32)
-    lookups, occs = [], []
     for s, pieces in enumerate(shard_ranges):
         for sid, rs, re in pieces:
             own_start[s, sid] = rs
             own_end[s, sid] = re
             if rs - halo > 0:
                 halo_lo[s, sid] = rs - halo
-        cut_lo = total * s // num_shards - halo
-        cut_hi = total * (s + 1) // num_shards + halo
-        mask = (gpos >= cut_lo) & (gpos < cut_hi)
-        lk = np.zeros(nbuckets + 1, np.int64)
-        np.cumsum(np.bincount(hash_of[mask], minlength=nbuckets), out=lk[1:])
-        lookups.append(lk.astype(np.int32))
-        occs.append(occ_all[mask])  # occurrence order kept: bucket-sorted
+
+    # Shard membership by concatenated-genome coordinate: two compares per
+    # occurrence per shard. The window may pull in a neighbouring
+    # chromosome's tail or head where a cut abuts a chromosome boundary:
+    # harmless, those candidates are never owned, and a carry of another
+    # sid never suppresses a kept candidate in the greedy fold. The table
+    # goes by in chunks, so no whole-table temporary is made: at GRCh38
+    # scale (1e9 occurrences) each would be 8 GB of host memory.
+    occ_all = np.asarray(index.occurrences, np.uint64)
+    glookup = np.asarray(index.lookup, np.int64)
+    nbuckets = glookup.shape[0] - 1
+    bounds = np.concatenate([[0], np.cumsum(lengths)])
+    total = int(lengths.sum())
+    cuts = [(total * s // num_shards - halo, total * (s + 1) // num_shards + halo)
+            for s in range(num_shards)]
+    counts = np.zeros((num_shards, nbuckets), np.int64)
+    parts: List[List[np.ndarray]] = [[] for _ in range(num_shards)]
+    for lo in range(0, occ_all.shape[0], _CHUNK):
+        occ = occ_all[lo : lo + _CHUNK]
+        hi = lo + occ.shape[0]
+        # The bucket of each occurrence of the chunk, from the CSR.
+        b0 = int(np.searchsorted(glookup, lo, side="right")) - 1
+        b1 = int(np.searchsorted(glookup, hi, side="left"))
+        runs = np.diff(np.clip(glookup[b0 : b1 + 1], lo, hi))
+        hash_of = np.repeat(np.arange(b0, b1, dtype=np.int64), runs)
+        gpos = bounds[(occ >> np.uint64(32)).astype(np.int64)]
+        gpos += (occ & np.uint64(0xFFFFFFFF)).astype(np.int64)
+        for s, (cut_lo, cut_hi) in enumerate(cuts):
+            mask = (gpos >= cut_lo) & (gpos < cut_hi)
+            counts[s] += np.bincount(hash_of[mask], minlength=nbuckets)
+            parts[s].append(occ[mask])  # occurrence order kept: bucket-sorted
+    lookups = np.zeros((num_shards, nbuckets + 1), np.int64)
+    np.cumsum(counts, axis=1, out=lookups[:, 1:])
+    del counts
+    occs = []
+    for s in range(num_shards):
+        occs.append(np.concatenate(parts[s]) if parts[s] else np.empty(0, np.uint64))
+        parts[s] = None
 
     # Reference slices (leading and trailing sentinel gaps). Slice [lo, hi)
     # of chromosome `sid` lands at flat position `pos`, so its offset is
@@ -193,7 +209,7 @@ def build_sharded_index(
         num_shards=num_shards,
         ranges=shard_ranges,
         halo=halo,
-        lookup=np.stack(lookups),
+        lookup=lookups,
         occ=occs,
         ref_flat=flats,
         ref_offsets=offsets,

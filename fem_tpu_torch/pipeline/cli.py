@@ -232,6 +232,10 @@ def map_main(argv: list[str]) -> int:
                    help="write a torch.profiler trace to this directory")
     p.add_argument("--stats-json", default=None,
                    help="write pipeline metrics + counters as JSON")
+    p.add_argument("--engine-json", default=None,
+                   help="write what the device engine did as JSON: load times, "
+                        "steady reads/s, retries, kernel launches by shape, peak "
+                        "device memory, each grid cell's index")
     p.add_argument("--checkpoint", default=None,
                    help="progress file enabling resume after interruption")
     p.add_argument("--verbose-batches", action="store_true",
@@ -324,8 +328,12 @@ def _map_in_process(args, ctx, entries, multihost) -> int:
     from fem_tpu_torch.io.sam import SamWriter
     from fem_tpu_torch.utils.metrics import PipelineMetrics, Timer
 
+    load_t0 = time.time()
     reference = read_fasta(args.ref)
+    load_s = {"reference": time.time() - load_t0}
+    load_t0 = time.time()
     index = load_index(args.index)
+    load_s["index"] = time.time() - load_t0
     fem_args = FemArgs(
         kmer_size=index.kmer_size,
         step_size=index.step_size,
@@ -469,18 +477,23 @@ def _map_in_process(args, ctx, entries, multihost) -> int:
                 grid = None
             if grid is not None:
                 _print_grid(grid)
+            load_t0 = time.time()
             engine = MappingEngine(
                 fem_args, reference, index,
                 EngineConfig(batch_size=args.batch_size, **tune),
                 device=entries[0],
             )
+            load_s["engine"] = time.time() - load_t0
             source = ThreadedBatchSource(batches())
             bt = Timer()
+            t_stream = time.time()
+            items = []  # (wall, reads so far) after each item, for --engine-json
             # Checkpointing needs read-order output (see map_stream); the
             # flushed byte offset then pairs with the stream position.
             for recs, stats in engine.map_stream(source, ordered=ckpt_path is not None):
                 write_chunks(recs)
                 total += stats
+                items.append((time.time(), total.num_reads))
                 dt = bt.reset()
                 metrics.batch(stats.num_reads, len(recs), 0.0, dt)
                 if args.verbose_batches:
@@ -508,6 +521,9 @@ def _map_in_process(args, ctx, entries, multihost) -> int:
     if engine is not None:
         metrics.fallback_reads = engine.fallback_reads
         metrics.retried_reads = engine.retried_reads
+        if args.engine_json:
+            _dump_engine_json(multihost.shard_path(args.engine_json, ctx), engine,
+                              load_s, items, t_stream)
 
     # The counters summed over the processes (the reference's per-thread
     # stats rollup at join, src/FEM_map.c:200-212).
@@ -521,6 +537,53 @@ def _map_in_process(args, ctx, entries, multihost) -> int:
     _print_counters([getattr(total, k) for k in _COUNTER_KEYS])
     print(f"Time: {time.time() - t0:f}s", file=sys.stderr)
     return 0
+
+
+def _dump_engine_json(path: str, engine, load_s: dict, items: list, t_stream: float) -> None:
+    """What the device engine did, as JSON: load seconds (reference, index,
+    engine with its device index), the stream's seconds and its steady
+    reads/s (after the first two items, so the retry tax is in it and the
+    warm-up is not), retried, dispatched and host-mapped reads, the
+    kernels' launches by shape (filter_tail by "cap_occ+cap_cand",
+    banded_myers by "slots x lanes"), each device's peak memory, and each
+    grid cell's index: occurrences and reference bytes."""
+    import json
+
+    import torch
+
+    from fem_tpu_torch import kernels
+
+    reads = items[-1][1] if items else 0
+    steady = None
+    if len(items) > 2 and reads > items[1][1]:
+        t1, r1 = items[1]
+        steady = (reads - r1) / (items[-1][0] - t1)
+    cells = ({(0, 0): engine.dindex} if engine.dindex is not None
+             else engine._cell_index)
+    devices = sorted({str(dev) for dev in engine._streams})
+    shapes = kernels.launches_by_shape()
+    out = {
+        "load_s": load_s,
+        "stream_s": (items[-1][0] - t_stream) if items else 0.0,
+        "reads": reads,
+        "steady_reads_per_s": steady,
+        "retried_reads": engine.retried_reads,
+        "tier_dispatches": engine.tier_dispatches,
+        "dispatches_by_tier": {str(t): n for t, n in sorted(engine.dispatches_by_tier.items())},
+        "fallback_reads": engine.fallback_reads,
+        "kernel_launches": dict(kernels.launches),
+        "launches_by_shape": {
+            "filter_tail": {f"{c}+{cc}": n for (c, cc), n in sorted(shapes["filter_tail"].items())},
+            "banded_myers": {f"{v}x{nb}": n for (v, nb), n in sorted(shapes["banded_myers"].items())},
+        },
+        "peak_device_bytes": {d: torch.cuda.max_memory_allocated(d) for d in devices},
+        "cells": [{"cell": list(key), "occurrences": int(ix.occ.numel()),
+                   "ref_bytes": int(ix.ref_flat.numel()), "nbytes": ix.nbytes()}
+                  for key, ix in sorted(cells.items())],
+    }
+    with open(path, "w") as f:
+        json.dump(out, f, indent=2)
+        f.write("\n")
 
 
 def _print_grid(grid) -> None:

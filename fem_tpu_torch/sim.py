@@ -110,11 +110,19 @@ def satellite_genome(
 
 
 def write_fasta(path: str, seqs: List[Tuple[bytes, bytes]], width: int = 80) -> None:
+    """`width` bases a line; the full lines of a sequence are written as one
+    (rows, width + 1) array whose last column is the newline."""
     with open(path, "wb") as f:
         for name, seq in seqs:
             f.write(b">" + name + b"\n")
-            for i in range(0, len(seq), width):
-                f.write(seq[i : i + width] + b"\n")
+            full = len(seq) // width * width
+            if full:
+                rows = np.empty((full // width, width + 1), np.uint8)
+                rows[:, :width] = np.frombuffer(seq, np.uint8, count=full).reshape(-1, width)
+                rows[:, width] = ord("\n")
+                f.write(rows.data)
+            if full < len(seq):
+                f.write(seq[full:] + b"\n")
 
 
 _COMP = {65: 84, 67: 71, 71: 67, 84: 65, 78: 78}

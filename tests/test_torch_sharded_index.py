@@ -45,7 +45,7 @@ def test_build_equals_jax_field_by_field(small_reference, small_index, num_shard
     assert got.num_shards == want.num_shards and got.halo == want.halo
     assert got.ranges == want.ranges
     np.testing.assert_array_equal(got.lookup, want.lookup)
-    assert got.lookup.dtype == np.int32
+    assert got.lookup.dtype == np.int64  # offsets up to 2^32 - 1 (the index file's u32)
     for f in ("own_start", "own_end", "halo_lo", "ref_lengths", "freq_table"):
         np.testing.assert_array_equal(getattr(got, f), getattr(want, f), err_msg=f)
     np.testing.assert_array_equal(got.ref_offsets, want.ref_offsets.astype(np.int64))

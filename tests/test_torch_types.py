@@ -115,7 +115,7 @@ def test_port_sources_name_no_fem_tpu_import():
     parallel = os.path.join(_REPO, "fem_tpu_torch", "parallel")
     for name in ("mesh.py", "sharded_index.py", "multihost.py"):
         assert os.path.join(parallel, name) in files, name
-    for name in ("torch_soak.py", "torch_tail_bench.py"):
+    for name in ("torch_soak.py", "torch_tail_bench.py", "torch_grch38_scale.py"):
         assert os.path.join(_REPO, "tools", name) in files, name
     bad = [f for f in files if pat.search(open(f).read())]
     assert not bad, bad
@@ -141,3 +141,39 @@ def test_cuda_request_raises_without_cuda(small_reference, small_index, default_
         MappingEngine(default_args, ref, small_index)  # the default is the card
     with pytest.raises((RuntimeError, AssertionError)):
         ttypes.device_index_from_host(small_index, ref, "cuda")
+
+
+# A k=1 CSR whose last offsets lie in [2^31, 2^32): an index of up to
+# 2^32 - 1 occurrences (the u32 offsets of the index file, which
+# index.build.check_u32_csr admits). Every bucket stays under 2^31, as a
+# bucket of a real index does (at most genome length / step occurrences).
+_HIGH_LOOKUP = np.array([0, 2**30, 2**31 - 1, 2**31 + 2**30, 2**32 - 1], np.uint32)
+
+
+@pytest.mark.parametrize("as_shard", [False, True], ids=["whole", "shard"])
+def test_lookup_offsets_above_2_31_read_back_exactly(small_reference, as_shard):
+    """The device lookup holds CSR offsets past 2^31 exactly, whole and as
+    one shard; an int32 lookup would wrap them negative and the
+    candidates' occurrence gather would read the wrong rows."""
+    from fem_tpu_torch.index.storage import FemIndex
+
+    _, ref = small_reference
+    occ = np.arange(8, dtype=np.uint64)  # placement never reads past its own table
+    if as_shard:
+        got = ttypes.device_index_shard(
+            occ, _HIGH_LOOKUP, ref.flat_codes, ref.offsets,
+            np.zeros(ref.num_seqs, np.int32), ref.lengths.astype(np.int32),
+            np.full(ref.num_seqs, 2**30, np.int32),
+            np.diff(_HIGH_LOOKUP.astype(np.int64)).astype(np.int32), 2**32 - 1,
+            ref.lengths, "cpu")
+    else:
+        got = ttypes.device_index_from_host(FemIndex(1, 1, _HIGH_LOOKUP, occ), ref, "cpu")
+    assert got.lookup.dtype == torch.int64
+    np.testing.assert_array_equal(got.lookup.numpy(), _HIGH_LOOKUP.astype(np.int64))
+    assert int(got.lookup[-1]) == 2**32 - 1 and int(got.lookup.min()) == 0
+    assert got.freq_table.dtype == torch.int32
+    np.testing.assert_array_equal(got.freq_table.numpy(), np.diff(_HIGH_LOOKUP.astype(np.int64)))
+    # What candidates_front reads: the run start and length of a bucket.
+    h = torch.tensor([2, 3])
+    assert got.lookup[h].long().tolist() == [2**31 - 1, 2**31 + 2**30]
+    assert (got.lookup[h + 1].long() - got.lookup[h].long()).tolist() == [2**30 + 1, 2**30 - 1]
