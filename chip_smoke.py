@@ -149,12 +149,15 @@ exits non-zero without its result line:
               fem_baseline in records and counters and to the golden
               oracle on the first 64 reads, both kernels launched; a line a
               stage (seconds, peak host RSS, peak device memory, retries,
-              launches by shape, each shard's occurrences). Then the
-              unsharded map's first batch again in this process with the
-              eager step: the filter tail's call at 256 + 256 over 20,000
-              lanes and Myers' at 320,000 slots, held against their plain
-              versions and timed, rows of their own whose launches are the
-              tool's map's count at that shape.
+              launches by shape, each shard's occurrences). Then the maps'
+              first batch again in this process: unsharded with the eager
+              step, the filter tail's call at 256 + 256 over 20,000 lanes
+              and Myers' at 320,000 slots; on a (1, 4) grid on cuda:0, a
+              cell's filter tail at 256 + 256 and its Myers at 80,000
+              slots against the cell's own reference slice. Each is held
+              against its plain version and timed, a row of its own whose
+              launches are the tool's map's count at that shape (the
+              unsharded map's, or the grid's).
 
 Each kernel's bound is the least time the card could take for the same
 inputs: the bytes it must move (inputs once, outputs once) over 3.35 TB/s,
@@ -246,6 +249,12 @@ ROW_LAUNCHES = {
     "filter_tail_scale": ("filter_tail", lambda s: s == SCALE_TAIL, "scale"),
     "banded_myers_scale": ("banded_myers",
                            lambda s: s == (SCALE_VERIFY_SLOTS, 2 * SCALE_BATCH), "scale"),
+    # Its (1, 4) grid on one card: a cell's B reads against a quarter of the
+    # index, with a quarter of the verify slots.
+    "filter_tail_scale_shard": ("filter_tail", lambda s: s == SCALE_TAIL, "scale_grid"),
+    "banded_myers_scale_shard": ("banded_myers",
+                                 lambda s: s == (SCALE_VERIFY_SLOTS // 4, 2 * SCALE_BATCH),
+                                 "scale_grid"),
 }
 
 
@@ -1449,7 +1458,7 @@ def phase_bench() -> None:
         check(line["records_equal"] is True
               and line["records_equal_by_workers"] == {"2": True, "1": True},
               f"bench: a worker count is not equal to fem_baseline: {line}")
-        check(all(n > 0 for n in line["kernel_launches"].values()),
+        check(both_launched(line["kernel_launches"]),
               f"bench: a kernel was launched no time in its workers: {line}")
     log(f"[bench] {BENCH_ENV}: {time.perf_counter() - t0:.1f} s")
 
@@ -1689,7 +1698,8 @@ SWEEP_ROWS = {("e7_len150", "filter_tail_tier0"): "filter_tail_e7_a2",
               ("len76_step2", "banded_myers_tier0"): "banded_myers_lmax96"}
 
 
-def _hold_call(name: str, key: str, args: list, kw: dict, row: str | None) -> dict | None:
+def _hold_call(name: str, key: str, args: list, kw: dict, row: str | None,
+               head: str = "[configs]") -> dict | None:
     """One wrapper call captured from configuration `name`'s run, against its
     plain version on the same inputs (exact). With `row`, also timed and
     bounded as a kernel-table row, which is returned."""
@@ -1704,7 +1714,9 @@ def _hold_call(name: str, key: str, args: list, kw: dict, row: str | None) -> di
         what = f"NB={sid.shape[0]} G={sid.shape[1]} CAP={sid.shape[2]} CC={cc} e={e} a={a}"
         base = {"source": "fem_tpu_torch/csrc/filter_tail.cu",
                 "replaces": "fem_tpu/ops/filter_tail_pallas.py:213"}
-        timing = dict(plain_reps=3, cuda_name=plan(sid.shape[2], cc).kernel)
+        slow = sid.shape[2] + cc >= 4096  # the plain version's loop is seconds long there
+        timing = dict(plain_reps=1 if slow else 3, plain_samples=2 if slow else 5,
+                      cuda_name=plan(sid.shape[2], cc).kernel)
     else:
         dindex, v_sid, v_pos, v_lane, both, lens, e = args
         used = kw["used"]
@@ -1720,14 +1732,14 @@ def _hold_call(name: str, key: str, args: list, kw: dict, row: str | None) -> di
         got, want = kernel(), plain()
         torch.cuda.synchronize()
         d = max_abs_err(got, want)
-        log(f"[configs] {name} {key} ({what}; {note}): max_abs_err {d}")
+        log(f"{head} {name} {key} ({what}; {note}): max_abs_err {d}")
         check(d == 0, f"{name}: {key} differs from its plain version")
         return None
     res = {"name": row, "route": "cuda", **base, "library_ms": None}
     res.update(compare_and_time(key.rsplit("_", 1)[0], f"the {name} inputs of {key}",
                                 kernel, plain, **timing))
     res.update(bnd)
-    _log_times(f"[configs] {row}", f"on the {name} inputs ({what}; {note}), max_abs_err "
+    _log_times(f"{head} {row}", f"on the {name} inputs ({what}; {note}), max_abs_err "
                f"{res['max_abs_err']}", res, bnd)
     return res
 
@@ -1828,21 +1840,44 @@ def phase_configs(workdir: str, seqs, benign_paths: dict) -> tuple[dict, list]:
     return out, rows
 
 
+def both_launched(launches: dict) -> bool:
+    """Both kernels launched at least once; a count that is missing is none."""
+    return all(launches.get(k, 0) > 0 for k in ("filter_tail", "banded_myers"))
+
+
+def scale_rows(tag: str, engine, batch, rows: dict) -> list[dict]:
+    """`batch` mapped once by `engine` with the eager step (a grid's cells
+    are eager anyway); for each row (name -> (call key, test of the wrapper
+    call)), the first call that passes its test is held against its plain
+    version (exact) and timed as a kernel-table row."""
+    engine.eager_step = True
+    probe = Probe(engine)
+    probe.capture = {row: test for row, (_, test) in rows.items()}
+    engine.map_batch(batch)
+    probe.close()
+    check(set(probe.captured) == set(rows),
+          f"{tag}: captured the calls of {sorted(probe.captured)} only")
+    return [_hold_call(tag, key, *probe.captured.pop(row), row, head="[scale]")
+            for row, (key, _) in rows.items()]
+
+
 def phase_scale(workdir: str) -> tuple[dict, list]:
     """tools/torch_grch38_scale.py at SCALE_ARGS as a process of its own (the
     GRCh38 profile's 24 chromosomes, the index through the command line
     byte-equal to fem_baseline's, the unsharded map and the (1, 4) grid on
-    cuda:0 equal to fem_baseline, the golden oracle's prefix), then the
-    kernels at the unsharded map's own inputs: its first batch mapped again
-    here with the eager step, the filter tail's call at 256 + 256 and Myers'
-    at 320,000 slots held against their plain versions and timed. A row's
-    launches are the tool's unsharded map's count at its shape (a process
-    of its own, whose counts start at 0)."""
+    cuda:0 equal to fem_baseline, the golden oracle's prefix, both kernels
+    launched in each map), then the kernels at each map's own inputs: its
+    first batch mapped again here, unsharded with the eager step (the
+    filter tail at 256 + 256 over 20,000 lanes, Myers at 320,000 slots)
+    and on a (1, 4) grid on cuda:0 (a cell's filter tail at 256 + 256,
+    its Myers at 80,000 slots against its own reference slice), each call
+    held against its plain version and timed. A row's launches are the
+    tool's map's count at its shape (a process of its own, whose counts
+    start at 0): "scale" for the unsharded map, "scale_grid" for the grid."""
     from fem_tpu_torch.config import FemArgs
     from fem_tpu_torch.index.storage import load_index
     from fem_tpu_torch.io import fastx
-    from fem_tpu_torch.ops.filter_tail import filter_tail, filter_tail_plain, plan
-    from fem_tpu_torch.ops.verify import verify_candidates, verify_candidates_plain
+    from fem_tpu_torch.parallel.mesh import make_index_mesh
     from fem_tpu_torch.pipeline.engine import EngineConfig, MappingEngine
 
     t_phase = time.perf_counter()
@@ -1859,76 +1894,50 @@ def phase_scale(workdir: str) -> tuple[dict, list]:
     stages = {st["stage"]: st for st in summary["stages"]}
     check(summary["ok"] and {"map", "map_grid"} <= set(stages),
           f"torch_grch38_scale: {[(st['stage'], st['ok']) for st in summary['stages']]}")
-    for name in ("map", "map_grid"):
+    runs = {}
+    for name, path in (("map", "scale"), ("map_grid", "scale_grid")):
         st = stages[name]
         check(st["records_equal"] and st["counters_equal"] and st["golden_equal"]
-              and all(n > 0 for n in st["kernel_launches"].values()),
-              f"scale {name}: not equal to fem_baseline, or a kernel never launched")
+              and both_launched(st["kernel_launches"]),
+              f"scale {name}: not equal to fem_baseline, or a kernel never launched: "
+              f"{st['kernel_launches']}")
+        shapes = st["launches_by_shape"]
+        runs[path] = {
+            "tail_shapes": {tuple(int(x) for x in k.split("+")): n
+                            for k, n in shapes["filter_tail"].items()},
+            "myers_shapes": {tuple(int(x) for x in k.split("x")): n
+                             for k, n in shapes["banded_myers"].items()}}
     check(len(stages["map_grid"]["cells"]) == 4, "scale: the grid is not (1, 4)")
-    tail = {tuple(int(x) for x in k.split("+")): n
-            for k, n in stages["map"]["launches_by_shape"]["filter_tail"].items()}
-    myers = {tuple(int(x) for x in k.split("x")): n
-             for k, n in stages["map"]["launches_by_shape"]["banded_myers"].items()}
-    run = {"tail_shapes": tail, "myers_shapes": myers}
 
-    # The kernels on the unsharded map's own inputs.
+    # The kernels on each map's own inputs.
     ref = fastx.read_fasta(os.path.join(d, "ref.fa"))
     index = load_index(os.path.join(d, "ref.index"))
-    engine = MappingEngine(FemArgs(error_threshold=E, num_additional_qgrams=A), ref, index,
-                           EngineConfig())
-    check((engine.config.batch_size, engine.config.cap_occ, engine.config.cap_cand)
-          == (SCALE_BATCH, *SCALE_TAIL)
-          and engine._caps(engine._tier(0))[0] == SCALE_VERIFY_SLOTS,
-          "scale: the command line's defaults are not the rows' shapes")
-    engine.eager_step = True
-    probe = Probe(engine)
-    probe.capture = {
-        "filter_tail_scale": lambda attr, a: attr == "filter_tail"
-        and (a[0].shape[2], a[2]) == SCALE_TAIL,
-        "banded_myers_scale": lambda attr, a: attr == "verify_candidates"
-        and a[1].shape[0] == SCALE_VERIFY_SLOTS}
-    engine.map_batch(next(fastx.stream_fastq_batches(os.path.join(d, "reads.fq"),
-                                                     batch_size=SCALE_BATCH)))
-    probe.close()
-    check(set(probe.captured) == set(probe.capture),
-          f"scale: captured inputs of {sorted(probe.captured)} only")
+    batch = next(fastx.stream_fastq_batches(os.path.join(d, "reads.fq"),
+                                            batch_size=SCALE_BATCH))
+    args = FemArgs(error_threshold=E, num_additional_qgrams=A)
+    is_tail = lambda attr, a: attr == "filter_tail" and (a[0].shape[2], a[2]) == SCALE_TAIL
     rows = []
-    (sid, diag, cc, e, a), _ = probe.captured["filter_tail_scale"]
-    row = {"name": "filter_tail_scale", "route": "cuda",
-           "source": "fem_tpu_torch/csrc/filter_tail.cu",
-           "replaces": "fem_tpu/ops/filter_tail_pallas.py:213", "library_ms": None}
-    row.update(compare_and_time(
-        "filter_tail", "the scale map's own slabs",
-        lambda: filter_tail(sid, diag, cc, e, a),
-        lambda: filter_tail_plain(sid, diag, cc, e, a), 2, 3,
-        cuda_name=plan(sid.shape[2], cc).kernel))
-    bnd, note = tail_bound(sid, diag, cc)
-    row.update(bnd)
-    rows.append(row)
-    log(f"[scale] filter_tail NB={sid.shape[0]} G={sid.shape[1]} CAP={sid.shape[2]} CC={cc} "
-        f"e={e} a={a} ({plan(sid.shape[2], cc).kernel}), the unsharded map's own slabs: {note}")
-    _log_times("[scale] filter_tail_scale", "own slabs", row, row)
-    (dindex, v_sid, v_pos, v_lane, both, lens, e), kw = probe.captured["banded_myers_scale"]
-    used = kw["used"]
-    row = {"name": "banded_myers_scale", "route": "cuda",
-           "source": "fem_tpu_torch/csrc/banded_myers.cu",
-           "replaces": "fem_tpu/ops/verify_pallas.py:122", "library_ms": None}
-    row.update(compare_and_time(
-        "banded_myers", "the scale map's own slots",
-        lambda: verify_candidates(dindex, v_sid, v_pos, v_lane, both, lens, e, used=used),
-        lambda: verify_candidates_plain(dindex, v_sid, v_pos, v_lane, both, lens, e, used=used),
-        2, 3))
-    bnd, note = myers_bound(v_sid, v_pos, v_lane, both, lens, e, used)
-    row.update(bnd)
-    rows.append(row)
-    log(f"[scale] banded_myers V={v_sid.shape[0]} Lmax={both.shape[1]} e={e}, the unsharded "
-        f"map's own slots: {note}")
-    _log_times("[scale] banded_myers_scale", "own slots", row, row)
-    del engine, probe, dindex
-    torch.cuda.empty_cache()
+    for tag, config, slots in (
+            ("scale", EngineConfig(), SCALE_VERIFY_SLOTS),
+            ("scale_grid", EngineConfig(index_mesh=make_index_mesh(["cuda:0"] * 4, 4)),
+             SCALE_VERIFY_SLOTS // 4)):
+        c = config
+        check((c.batch_size, c.cap_occ, c.cap_cand, 2 * c.batch_size * c.verify_per_read)
+              == (SCALE_BATCH, *SCALE_TAIL, SCALE_VERIFY_SLOTS),
+              f"{tag}: the command line's defaults are not the rows' shapes")
+        engine = MappingEngine(args, ref, index, config)
+        suffix = "" if tag == "scale" else "_shard"
+        rows += scale_rows(tag, engine, batch, {
+            f"filter_tail_scale{suffix}": ("filter_tail_tier0", is_tail),
+            f"banded_myers_scale{suffix}": (
+                "banded_myers_tier0",
+                lambda attr, a, slots=slots: attr == "verify_candidates"
+                and (a[1].shape[0], a[4].shape[0]) == (slots, 2 * SCALE_BATCH))})
+        del engine
+        torch.cuda.empty_cache()
     log(f"[scale] phase 11: {time.perf_counter() - t_phase:.1f} s (the tool "
         f"{summary['seconds']:.1f} s)")
-    return run, rows
+    return runs, rows
 
 
 def main() -> int:
@@ -1991,9 +2000,9 @@ def main() -> int:
         sweep_runs, sweep_rows = phase_configs(workdir, benign_seqs, benign_paths)
         lap("phase 10")
         del benign_seqs
-        scale_run, scale_rows = phase_scale(workdir)
+        scale_runs, scale_table = phase_scale(workdir)
         lap("phase 11")
-    rows += grid_rows + sweep_rows + scale_rows
+    rows += grid_rows + sweep_rows + scale_table
     check(adversarial["retried"] > 0, "adversarial: no read was retried")
     check(any(cap + cc > 512 for cap, cc in adversarial["tail_shapes"]),
           "adversarial: filter_tail never launched above cap_cand + cap_occ = 512")
@@ -2006,7 +2015,7 @@ def main() -> int:
     # A row of phase 10 is read on its configuration's counted run only: the
     # shape of a count names no Lmax, e or a.
     runs = {"benign": benign, "adversarial": adversarial, **grid_runs}
-    paths = {**runs, **{f"configs_{n}": r for n, r in sweep_runs.items()}, "scale": scale_run}
+    paths = {**runs, **{f"configs_{n}": r for n, r in sweep_runs.items()}, **scale_runs}
     check({r["name"] for r in rows} == set(ROW_LAUNCHES), "a row without a launch count")
     for row in rows:
         kernel, at_shape, path = ROW_LAUNCHES[row["name"]]

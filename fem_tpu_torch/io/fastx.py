@@ -15,6 +15,7 @@ The port's copy of fem_tpu/io/fastx.py.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import gzip
 import io
 from typing import Iterator, List
@@ -202,17 +203,27 @@ class Reference:
         off = int(self.offsets[i])
         return self.flat_codes[off : off + int(self.lengths[i])]
 
+    @functools.cached_property
+    def seqs_blob(self) -> tuple[bytes, np.ndarray]:
+        """Every sequence joined into one bytes object, and its offsets:
+        made once and shared by the native emitter and host mapper (3 GB
+        at GRCh38 scale)."""
+        return blob(self.seqs)
 
-def seqs_blob(reference: Reference) -> tuple[bytes, np.ndarray]:
-    """Every sequence of `reference` joined into one bytes object, and the
-    (S + 1,) int64 offsets of each in it: made once a reference and shared
-    by the native emitter and host mapper (3 GB at GRCh38 scale)."""
-    blob = getattr(reference, "_seqs_blob", None)
-    if blob is None:
-        offsets = np.zeros(len(reference.seqs) + 1, np.int64)
-        np.cumsum([len(s) for s in reference.seqs], out=offsets[1:])
-        blob = reference._seqs_blob = (b"".join(reference.seqs), offsets)
-    return blob
+
+def seqs_blob(reference) -> tuple[bytes, np.ndarray]:
+    """`reference.seqs` joined, and the offsets: kept by the port's
+    Reference (Reference.seqs_blob); made anew for a reference of another
+    type with the same fields."""
+    return reference.seqs_blob if isinstance(reference, Reference) else blob(reference.seqs)
+
+
+def blob(items: List[bytes]) -> tuple[bytes, np.ndarray]:
+    """`items` joined into one bytes object, and the (n + 1,) int64
+    offsets of each in it, as the native library takes them."""
+    offsets = np.zeros(len(items) + 1, np.int64)
+    np.cumsum([len(x) for x in items], out=offsets[1:])
+    return b"".join(items), offsets
 
 
 def _fasta_records(path: str) -> tuple[List[bytes], List[bytes]]:

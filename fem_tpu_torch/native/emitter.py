@@ -5,7 +5,6 @@ build raises with the compiler's error."""
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence
 
 import numpy as np
 
@@ -45,12 +44,6 @@ def _native():
     return lib
 
 
-def _blob(items: Sequence[bytes]):
-    offsets = np.zeros(len(items) + 1, np.int64)
-    np.cumsum([len(x) for x in items], out=offsets[1:])
-    return b"".join(items), offsets
-
-
 class NativeEmitter:
     """Per-reference emitter; reusable across batches."""
 
@@ -59,7 +52,7 @@ class NativeEmitter:
         self._e = error_threshold
         self._ref_blob, self._ref_offsets = fastx.seqs_blob(reference)
         self._ref_lens = reference.lengths.astype(np.int64)
-        self._ref_names_blob, self._ref_name_offsets = _blob(reference.names)
+        self._ref_names_blob, self._ref_name_offsets = fastx.blob(reference.names)
         self._num_refs = reference.num_seqs
 
     def emit(
@@ -82,8 +75,8 @@ class NativeEmitter:
             seq_offsets = np.ascontiguousarray(batch.seq_offsets, np.int64)
             quals_blob = batch.quals_blob
         else:
-            names_blob, name_offsets = _blob(batch.names)
-            seqs_blob, seq_offsets = _blob(batch.seqs)
+            names_blob, name_offsets = fastx.blob(batch.names)
+            seqs_blob, seq_offsets = fastx.blob(batch.seqs)
             quals_blob = b"".join(batch.quals)
         assert len(quals_blob) == len(seqs_blob)
         map_counts = np.ascontiguousarray(map_counts, np.int32)

@@ -41,12 +41,6 @@ def _native():
     return lib
 
 
-def _blob(items):
-    offsets = np.zeros(len(items) + 1, np.int64)
-    np.cumsum([len(x) for x in items], out=offsets[1:])
-    return b"".join(items), offsets
-
-
 class NativeCpuMapper:
     """Complete in-process CPU mapper over the host-resident index.
     Byte-identical semantics to the golden oracle at C++ speed; used by
@@ -63,7 +57,7 @@ class NativeCpuMapper:
         self._lock = threading.Lock()
         # Keep every buffer alive for the handle's lifetime.
         self._ref_blob, self._ref_offsets = fastx.seqs_blob(reference)
-        self._names_blob, self._name_offsets = _blob(reference.names)
+        self._names_blob, self._name_offsets = fastx.blob(reference.names)
         self._lookup = np.ascontiguousarray(index.lookup, np.uint32)
         self._occ = np.ascontiguousarray(index.occurrences, np.uint64)
         vp = lambda a: a.ctypes.data_as(ctypes.c_void_p)
@@ -95,8 +89,8 @@ class NativeCpuMapper:
         self, names: List[bytes], seqs: List[bytes], quals: List[bytes]
     ) -> Tuple[bytes, np.ndarray]:
         """Returns (sam_blob, stats[5] = reads/mapped/cand_pre/cand/mappings)."""
-        names_blob, name_offsets = _blob(names)
-        seqs_blob, seq_offsets = _blob(seqs)
+        names_blob, name_offsets = fastx.blob(names)
+        seqs_blob, seq_offsets = fastx.blob(seqs)
         quals_blob = b"".join(quals)
         assert len(quals_blob) == len(seqs_blob)
         out_buf = ctypes.c_void_p()

@@ -543,13 +543,10 @@ def _dump_engine_json(path: str, engine, load_s: dict, items: list, t_stream: fl
     """What the device engine did, as JSON: load seconds (reference, index,
     engine with its device index), the stream's seconds and its steady
     reads/s (after the first two items, so the retry tax is in it and the
-    warm-up is not), retried, dispatched and host-mapped reads, the
-    kernels' launches by shape (filter_tail by "cap_occ+cap_cand",
-    banded_myers by "slots x lanes"), each device's peak memory, and each
-    grid cell's index: occurrences and reference bytes."""
+    warm-up is not), the kernels' launches by shape (filter_tail by
+    "cap_occ+cap_cand", banded_myers by "slots x lanes"), and the engine's
+    report (MappingEngine.report)."""
     import json
-
-    import torch
 
     from fem_tpu_torch import kernels
 
@@ -558,28 +555,18 @@ def _dump_engine_json(path: str, engine, load_s: dict, items: list, t_stream: fl
     if len(items) > 2 and reads > items[1][1]:
         t1, r1 = items[1]
         steady = (reads - r1) / (items[-1][0] - t1)
-    cells = ({(0, 0): engine.dindex} if engine.dindex is not None
-             else engine._cell_index)
-    devices = sorted({str(dev) for dev in engine._streams})
     shapes = kernels.launches_by_shape()
     out = {
         "load_s": load_s,
         "stream_s": (items[-1][0] - t_stream) if items else 0.0,
         "reads": reads,
         "steady_reads_per_s": steady,
-        "retried_reads": engine.retried_reads,
-        "tier_dispatches": engine.tier_dispatches,
-        "dispatches_by_tier": {str(t): n for t, n in sorted(engine.dispatches_by_tier.items())},
-        "fallback_reads": engine.fallback_reads,
         "kernel_launches": dict(kernels.launches),
         "launches_by_shape": {
             "filter_tail": {f"{c}+{cc}": n for (c, cc), n in sorted(shapes["filter_tail"].items())},
             "banded_myers": {f"{v}x{nb}": n for (v, nb), n in sorted(shapes["banded_myers"].items())},
         },
-        "peak_device_bytes": {d: torch.cuda.max_memory_allocated(d) for d in devices},
-        "cells": [{"cell": list(key), "occurrences": int(ix.occ.numel()),
-                   "ref_bytes": int(ix.ref_flat.numel()), "nbytes": ix.nbytes()}
-                  for key, ix in sorted(cells.items())],
+        **engine.report(),
     }
     with open(path, "w") as f:
         json.dump(out, f, indent=2)

@@ -567,6 +567,24 @@ class MappingEngine:
         self._programs_lock = threading.Lock()
         self._capture_lock = threading.Lock()
 
+    def report(self) -> dict:
+        """What the engine did and holds, for a caller to serialize:
+        retried, dispatched and host-mapped reads, each device's peak
+        memory, and each grid cell's index (occurrences, reference bytes,
+        bytes in all)."""
+        cells = {(0, 0): self.dindex} if self.dindex is not None else self._cell_index
+        return {
+            "retried_reads": self.retried_reads,
+            "tier_dispatches": self.tier_dispatches,
+            "dispatches_by_tier": {str(t): n for t, n in sorted(self.dispatches_by_tier.items())},
+            "fallback_reads": self.fallback_reads,
+            "peak_device_bytes": {str(d): torch.cuda.max_memory_allocated(d)
+                                  for d in sorted(self._streams, key=str)},
+            "cells": [{"cell": list(key), "occurrences": int(ix.occ.numel()),
+                       "ref_bytes": int(ix.ref_flat.numel()), "nbytes": ix.nbytes()}
+                      for key, ix in sorted(cells.items())],
+        }
+
     def _init_sharded_index(self, index: FemIndex) -> None:
         """Each cell's shard on its device, once per (device, shard)."""
         from fem_tpu_torch.parallel.sharded_index import build_sharded_index

@@ -7,7 +7,8 @@ both maps' records are held against fem_tpu's build_index,
 build_sharded_index and golden oracle on the same seeded reference, and
 against fem_baseline. The genome's profile and seed are pinned to
 tools/grch38_scale.py by reading that file's text (importing it sets JAX
-up). A fem_baseline that writes another index makes the tool exit 1. The
+up). A fem_baseline that writes another index, and a map that launched
+no kernel on the card, make the tool exit 1. The
 port's FASTA reader and index build, both rewritten for this scale, are
 held against fem_tpu's on edge cases.
 """
@@ -67,7 +68,7 @@ def test_stages_pass_and_report(scale):
     _, summary, _ = scale
     assert summary["ok"], summary
     stages = {s["stage"]: s for s in summary["stages"]}
-    assert list(stages) == ["synthesize", "index", "reads", "golden", "map", "map_grid"]
+    assert list(stages) == ["synthesize", "reads", "index", "golden", "map", "map_grid"]
     assert stages["synthesize"]["chromosomes"] == 24
     assert stages["index"]["sha256"] == stages["index"]["baseline_sha256"]
     for name in ("map", "map_grid"):
@@ -176,9 +177,47 @@ def test_an_index_that_differs_exits_1(scale, tmp_path, capsys):
     assert rc == 1, "\n".join(out)
     summary = json.loads(out[-1])
     assert not summary["ok"]
-    assert [s["stage"] for s in summary["stages"]] == ["synthesize", "index"]
+    assert [s["stage"] for s in summary["stages"]] == ["synthesize", "reads", "index"]
     assert not summary["stages"][-1]["ok"]
     assert any(ln.startswith("FAIL index") for ln in out)
+
+
+def test_a_map_without_kernel_launches_exits_1(scale, tmp_path, monkeypatch, capsys):
+    """On the card a map must launch both kernels: an engine report whose
+    launch counts are empty (or name one kernel) fails the map stage and
+    the tool exits 1. The card is simulated: the maps run on the CPU and
+    their report's counts are replaced."""
+    mod = scale[0]
+    assert not mod.kernels_launched({})
+    assert not mod.kernels_launched({"filter_tail": 3})
+    assert not mod.kernels_launched({"filter_tail": 3, "banded_myers": 0})
+    assert mod.kernels_launched({"filter_tail": 3, "banded_myers": 1})
+    real_port = mod.Runner.port
+
+    def port(self, tag, *args, env=None):
+        args = ["cpu" if a == "cuda" else a for a in args]
+        r = real_port(self, tag, *args, env=env)
+        if "--engine-json" in args:
+            ej = args[args.index("--engine-json") + 1]
+            with open(ej) as f:
+                eng = json.load(f)
+            with open(ej, "w") as f:
+                json.dump(dict(eng, kernel_launches={}), f)
+        return r
+
+    monkeypatch.setattr(mod.Runner, "port", port)
+    monkeypatch.setattr(mod, "device_line", lambda device: "a simulated card")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    argv = [x if x != "cpu" else "cuda" for x in _ARGS]
+    rc = mod.main(argv + ["--reads", "50", "--golden-reads", "4", "--index-shards", "1",
+                          "--workdir", str(tmp_path / "w")])
+    out = capsys.readouterr().out.strip().splitlines()
+    assert rc == 1, "\n".join(out)
+    summary = json.loads(out[-1])
+    last = summary["stages"][-1]
+    assert last["stage"] == "map" and not last["ok"] and not last["kernels_launched"]
+    assert last["records_equal"] and last["counters_equal"]
+    assert "a kernel never launched" in last["why"]
 
 
 def test_defaults_are_the_card_and_full_size(scale, monkeypatch):
@@ -189,6 +228,18 @@ def test_defaults_are_the_card_and_full_size(scale, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="no CUDA device"):
         mod.main([])
+
+
+def test_rows_tool_needs_the_card(monkeypatch):
+    """tools/torch_scale_rows.py times kernels on the card: without CUDA it
+    stops before it writes or builds anything."""
+    spec = importlib.util.spec_from_file_location(
+        "torch_scale_rows", os.path.join(_REPO, "tools", "torch_scale_rows.py"))
+    rows = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(rows)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        rows.main(["--gb", "0.003"])
 
 
 def test_too_little_disk_stops_before_writing(scale, tmp_path, monkeypatch):

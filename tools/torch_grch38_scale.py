@@ -6,12 +6,13 @@ repeats: segments of 500-5,000 bp re-inserted with 1% divergence; seed 2024)
 of --gb gigabases (3.0 by default) is indexed and mapped:
 
   synthesize  the genome, written as FASTA (sim.write_fasta);
+  reads       --reads simulated 100 bp reads with up to 5 errors (seed 77)
+              as FASTQ, and a FASTQ of the first --golden-reads of them;
+              then the tool lets the genome go;
   index       `python -m fem_tpu_torch index 12 3` and `fem_baseline index
               12 3`; the two files must be byte-equal (compared by digest);
               the occurrence count is printed (999,999,915 at 3.0 Gb, two
               under the u32 CSR guard);
-  reads       --reads simulated 100 bp reads with up to 5 errors (seed 77)
-              as FASTQ, and a FASTQ of the first --golden-reads of them;
   map         `python -m fem_tpu_torch map -e 5 -a 1` with the command
               line's defaults (B=10,000, cap_occ 256, cap_cand 256, verify
               16 and accept 4 slots a read, the default ladder) on one
@@ -19,7 +20,7 @@ of --gb gigabases (3.0 by default) is indexed and mapped:
               against `fem_baseline map -e 5 -a 1` on the same reads (once a
               --baseline-threads count, each equal), the golden oracle
               (`map --engine golden`) on the first reads as their records in
-              read order, and both kernels launched;
+              read order, and both kernels launched (on the card);
   map_grid    the same map with --index-shards N (4 by default; 1 skips
               it) on a (1, N) grid, every cell on the first card; on a
               machine with N cards or more also once over N cards
@@ -77,6 +78,7 @@ REPEAT_SHARE = 0.2
 READ_SEED = 77
 READ_LENGTH = 100
 E, A, K, STEP = 5, 1, 12, 3
+KERNELS = ("filter_tail", "banded_myers")
 COUNTER_NAMES = ("reads", "mapped reads", "candidates before the additional q-gram filter",
                  "candidates", "mappings")
 
@@ -241,6 +243,12 @@ def counters(stderr: str) -> list:
     return got
 
 
+def kernels_launched(launches: dict) -> bool:
+    """Each of KERNELS launched at least once; a count that is missing
+    is none."""
+    return all(launches.get(k, 0) > 0 for k in KERNELS)
+
+
 def first_difference(got: list, want: list) -> str:
     for i, (g, w) in enumerate(zip(got, want)):
         if g != w:
@@ -372,7 +380,7 @@ def stage_map(a, run: Runner, name: str, paths: dict, base: dict, golden: tuple,
           "load_seconds": eng["load_s"], "kernel_launches": eng["kernel_launches"],
           "launches_by_shape": eng["launches_by_shape"], "cells": eng["cells"],
           "baseline_reads_per_s": {t: v["reads_per_s"] for t, v in base["by_threads"].items()}}
-    launched = all(n > 0 for n in eng["kernel_launches"].values()) if a.device != "cpu" else True
+    launched = kernels_launched(eng["kernel_launches"]) if a.device != "cpu" else True
     st["kernels_launched"] = launched
     why = []
     if not st["records_equal"]:
@@ -504,11 +512,11 @@ def run(a) -> dict:
 
         st, seqs = stage_synthesize(a, paths)
         done(st)
-        done(stage_index(a, runner, baseline, paths))
         st = stage_reads(a, paths, seqs)
-        del seqs
+        del seqs  # the index and map processes below need the memory
         names = [n.encode() for n in st.pop("golden_names")]
         done(st)
+        done(stage_index(a, runner, baseline, paths))
 
         g = runner.port("golden", "map", "-e", E, "-a", A, "--ref", paths["fa"], "--index",
                         paths["ix"], "--read1", paths["fq_golden"], "-o",
