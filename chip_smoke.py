@@ -122,12 +122,36 @@ exits non-zero without its result line:
               once as one (2, 2) grid with --index-shards 2 (gloo: NCCL
               refuses two ranks on one GPU; the [dist] lines must say so).
               Every run: records and counters == fem_baseline, both kernels
-              launched. Kernel rows at the per-shard shapes: the filter
+              launched. Grids run through their GridPrograms, one per
+              (tier, Lmax): every dispatch padded to its tier's batch size
+              and split evenly over the data rows, each cell's step a CUDA
+              graph a segment (one on a data grid, three on an index grid,
+              the rows' reductions eager between them). For each grid in
+              this process (data 2, (1, 4), (2, 2), adversarial (1, 2)):
+              the first tier-0 dispatch eagerly under
+              set_sync_debug_mode("error"); the counted run, whose every
+              dispatch after a key's first must be a replay (a line gives
+              the keys and each cell's capture time, graph memory and
+              replays) with one launch of each kernel a cell a dispatch; a
+              run under torch.profiler, which must see each kernel as often
+              as the wrappers counted; a run with engine.eager_step, which
+              must give the same records; for data 2 and (1, 4), steady
+              reads/s with the eager step and through the graphs in turns
+              (eager, graphs, graphs, eager), with the card's name and
+              power limit. The inputs replayed in phase 6's manner are
+              captured with the eager step (a replay calls no wrapper). The
+              CLI in this process runs under torch.profiler (its counts
+              against the wrappers'), and it and both ranks of each
+              two-process run write --engine-json, whose step programs must
+              all have replayed after each key's first dispatch. (The two
+              processes' first dispatch is not held under the sync debug
+              mode: their gloo reductions between the segments go through
+              host memory by design; the segments are the (2, 2) grid's,
+              held here.) Kernel rows at the per-shard shapes: the filter
               tail over 32,768 lanes (a (1, n_ip) row) and 16,384 (n_dp =
               2), banded Myers at 16,384 slots over 32,768 lanes, on
               synthetic inputs and replayed on a (1, 4) shard's own (for
               Myers, a shard whose reference slice has negative offsets).
-              Grids run their cells eagerly.
   10. configs the parameter sweep of tests/test_config_matrix.py (e=7 a=2,
               e=0, e=5 a=0, k=10 step=5, 148 bp reads, 76 bp at step 2)
               and the soak's e=7 150 bp line (Lmax 160, the widest band),
@@ -147,10 +171,12 @@ exits non-zero without its result line:
               defaults (B=10,000, 256 + 256, 16 verify slots a lane)
               unsharded and on a (1, 4) grid on cuda:0, each equal to
               fem_baseline in records and counters and to the golden
-              oracle on the first 64 reads, both kernels launched; a line a
-              stage (seconds, peak host RSS, peak device memory, retries,
-              launches by shape, each shard's occurrences). Then the maps'
-              first batch again in this process: unsharded with the eager
+              oracle on the first 64 reads, both kernels launched, every
+              dispatch after a key's first a replay of the step graphs (the
+              grid's GridPrograms of four cells included); a line a stage
+              (seconds, peak host RSS, peak device memory, retries, launches
+              by shape, each shard's occurrences, the step programs). Then
+              the maps' first batch again in this process: unsharded with the eager
               step, the filter tail's call at 256 + 256 over 20,000 lanes
               and Myers' at 320,000 slots; on a (1, 4) grid on cuda:0, a
               cell's filter tail at 256 + 256 and its Myers at 80,000
@@ -1149,7 +1175,9 @@ def phase_main(tag: str, ref, index, paths, config, dev, turns: tuple,
 
 def sync_free_dispatch(tag: str, engine, batch) -> None:
     """One eager tier-0 dispatch with every host sync an error
-    (torch.cuda.set_sync_debug_mode): a graph captures no host read."""
+    (torch.cuda.set_sync_debug_mode): a graph captures no host read. On a
+    grid in one process the reductions between its segments are device
+    work too, so the whole dispatch is held."""
     engine.eager_step = True
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
@@ -1164,21 +1192,22 @@ def sync_free_dispatch(tag: str, engine, batch) -> None:
 
 
 def check_graphs(tag: str, engine, dispatches: int) -> dict:
-    """Every step program of the engine captured, and its dispatches (the
-    eager first one and the replays) adding up to `dispatches`; one line
-    names the keys, their capture times and graph memory. Returns them."""
-    progs = engine.programs
-    check(progs and all(p.graph is not None for p in progs.values()),
-          f"{tag}: a step program was not captured")
-    check(sum(1 + p.replays for p in progs.values()) == dispatches,
-          f"{tag}: {dispatches} dispatches, not all through the step programs")
-    info = {str(k): {"capture_s": p.capture_s, "replays": p.replays,
-                     "graph_MiB": p.pool_bytes / 2**20} for k, p in sorted(progs.items())}
-    log(f"[main] {tag}: through the step graphs, keys (tier, Lmax) captured "
-        f"{sorted(progs)}: " + "; ".join(
-            f"{k} capture {v['capture_s'] * 1e3:.1f} ms, graph memory {v['graph_MiB']:.1f} "
-            f"MiB, {v['replays']} replays" for k, v in info.items()))
-    return info
+    """Every step program of the engine (StepPrograms on one device,
+    GridPrograms on a grid) captured, each cell's every segment, and their
+    dispatches in the run just made (each key's eager first one and the
+    replays) adding up to `dispatches`: every dispatch after a key's first
+    replayed its graphs. One line names the keys, each cell's capture
+    time, graph memory and replays. Returns the programs' descriptions."""
+    from fem_tpu_torch.pipeline.cli import programs_line
+
+    progs = [p.describe() for _, p in sorted(engine.programs.items())]
+    check(progs and all(c["segments"] > 0 for p in progs for c in p["cells"]),
+          f"{tag}: a step program was not captured: {programs_line(progs)}")
+    check(sum(1 + p["replays"] for p in progs) == dispatches,
+          f"{tag}: {dispatches} dispatches, not all through the step programs: "
+          f"{programs_line(progs)}")
+    log(f"[main] {tag}: through the step graphs, keys (tier, Lmax) {programs_line(progs)}")
+    return {str(tuple(p["key"])): p for p in progs}
 
 
 def _log_submits(tag: str, what: str, run: dict) -> None:
@@ -1216,13 +1245,27 @@ def _no_ladder_run(tag: str, args, ref, index, paths, config, counted: dict) -> 
           == NUM_READS // BATCH, f"{tag}: the run without a ladder launched otherwise")
 
 
-def _profiled_run(tag: str, engine, probe, batches, digest) -> None:
+def profiler_counts(tag: str, prof, launches: dict) -> tuple[list, dict]:
+    """The kernels and copies a torch.profiler trace of the device holds,
+    as (key, device us, count); each of the port's kernels must appear as
+    often as the wrappers counted (`launches`, replays included)."""
+    events = [(ev.key, getattr(ev, "device_time_total", None)
+               or getattr(ev, "cuda_time_total", 0), ev.count) for ev in prof.key_averages()]
+    ours = {k: c for k, _, c in events if "filter_tail" in k or "banded_myers" in k}
+    for kernel, counted in launches.items():
+        seen = sum(c for k, c in ours.items() if kernel in k)
+        check(seen == counted, f"{tag}: the profiler saw {kernel} {seen} times, the "
+              f"wrappers counted {counted} launches ({ours})")
+    return events, ours
+
+
+def _profiled_run(tag: str, engine, probe, batches, digest, split: bool = True) -> None:
     """One more pipelined run under torch.profiler: the device's busy and
     idle share of the wall, and the kernels that take most of its time.
     The run replays graphs, whose launches the wrappers count from what
     the captures recorded: the trace must show each kernel as often as
-    they counted. Then one more run with the host's activity traced too:
-    where a submit_batch's host time goes."""
+    they counted. Then, with `split`, one more run with the host's
+    activity traced too: where a submit_batch's host time goes."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1230,13 +1273,7 @@ def _profiled_run(tag: str, engine, probe, batches, digest) -> None:
         again = run_engine(engine, probe, batches, "stream")
         torch.cuda.synchronize()
     check(again["digest"] == digest, f"{tag}: the profiled run gave other records")
-    events = [(ev.key, getattr(ev, "device_time_total", None)
-               or getattr(ev, "cuda_time_total", 0), ev.count) for ev in prof.key_averages()]
-    ours = {k: c for k, _, c in events if "filter_tail" in k or "banded_myers" in k}
-    for kernel, counted in again["launches"].items():
-        seen = sum(c for k, c in ours.items() if kernel in k)
-        check(seen == counted, f"{tag}: the profiler saw {kernel} {seen} times, the "
-              f"wrappers counted {counted} launches ({ours})")
+    events, ours = profiler_counts(tag, prof, again["launches"])
     wall_ms = again["seconds"] * 1e3
     busy_ms = sum(t for _, t, _ in events) / 1e3
     top = sorted(events, key=lambda x: -x[1])[:6]
@@ -1247,7 +1284,8 @@ def _profiled_run(tag: str, engine, probe, batches, digest) -> None:
         f"often as counted {again['launches']}: "
         + ", ".join(f"{k[:60]} x{c}" for k, c in ours.items()) + "; largest: "
         + "; ".join(f"{k[:48]} {t / 1e3:.2f} ms x{c}" for k, t, c in top))
-    _submit_split(tag, engine, probe, batches, digest)
+    if split:
+        _submit_split(tag, engine, probe, batches, digest)
 
 
 def _submit_split(tag: str, engine, probe, batches, digest) -> None:
@@ -1463,30 +1501,75 @@ def phase_bench() -> None:
     log(f"[bench] {BENCH_ENV}: {time.perf_counter() - t0:.1f} s")
 
 
-def _grid_run(tag: str, engine, batches, paths: dict, capture: dict | None = None) -> dict:
-    """The counted run of one grid engine through the pipelined stream
-    (== fem_baseline, both kernels launched), then a steady run; with
-    `capture`, one more run that keeps those kernel inputs (run["captured"])."""
+def _grid_run(tag: str, engine, batches, paths: dict, capture: dict | None = None,
+              turns: bool = False) -> dict:
+    """One grid engine through its GridPrograms (a graph a cell segment):
+    the first tier-0 dispatch eagerly with every host sync an error; the
+    counted run (== fem_baseline, both kernels launched, one launch of each
+    kernel a cell a dispatch, every dispatch after a key's first a replay);
+    a run under torch.profiler, which must see each kernel as often as the
+    wrappers counted; a run with the eager step, which must give the same
+    records; with `turns`, steady runs with the eager step and through the
+    graphs in turns (eager, graphs, graphs, eager); with `capture`, one more
+    eager run that keeps those kernel inputs (run["captured"]: a replay
+    calls no wrapper)."""
     probe = Probe(engine)
+    cells = len(engine.grid.local_cells())
+    sync_free_dispatch(tag, engine, batches[0])
     run = run_engine(engine, probe, batches, "stream")
-    _log_run(tag, "pipelined stream, counted run", run)
+    _log_run(tag, "pipelined stream through the grid's graphs, counted run (the captures "
+             "in it)", run)
     log(f"[parallel] {tag}: kernel launches {run['launches']}; filter_tail by (cap_occ, "
         f"cap_cand) {run['tail_shapes']}; banded_myers by (slots, lanes) {run['myers_shapes']}")
     check(all(n > 0 for n in run["launches"].values()), f"{tag}: a kernel was never launched")
+    dispatches = len(batches) + run["dispatches"]
+    check(run["launches"]["filter_tail"] == run["launches"]["banded_myers"]
+          == cells * dispatches, f"{tag}: not one launch of each kernel a cell a dispatch "
+          f"({cells} cells, {dispatches} dispatches): {run['launches']}")
+    run["graphs"] = check_graphs(tag, engine, dispatches)
     baseline_check(tag, paths, run)
-    again = run_engine(engine, probe, batches, "stream")
-    check(again["digest"] == run["digest"] and again["stats"] == run["stats"],
-          f"{tag}: the steady run gave other records")
-    _log_run(tag, "pipelined stream, steady", again)
-    run["steady_stream"] = [again["reads_per_s"]]
+    _profiled_run(tag, engine, probe, batches, run["digest"], split=False)
+    engine.eager_step = True
+    eager = run_engine(engine, probe, batches, "stream")
+    engine.eager_step = False
+    check(eager["digest"] == run["digest"] and eager["stats"] == run["stats"],
+          f"{tag}: the eager step gave other records or counters")
+    _log_run(tag, "pipelined stream with the eager step", eager)
+    if turns:
+        for mode in ("eager", "graphs", "graphs", "eager"):
+            engine.eager_step = mode == "eager"
+            again = run_engine(engine, probe, batches, "stream")
+            check(again["digest"] == run["digest"], f"{tag}: a steady {mode} run gave other records")
+            run.setdefault(f"steady_{mode}", []).append(again["reads_per_s"])
+        engine.eager_step = False
+        log(f"[parallel] {tag} steady pipelined reads/s in turns (eager, graphs, graphs, "
+            f"eager) on {_smi('name,power.limit')}: through the graphs "
+            f"{', '.join(f'{x:,.1f}' for x in run['steady_graphs'])}; eager step "
+            f"{', '.join(f'{x:,.1f}' for x in run['steady_eager'])}")
     if capture:
         probe.capture = capture
+        engine.eager_step = True
         again = run_engine(engine, probe, batches, "stream")
+        engine.eager_step = False
         check(again["digest"] == run["digest"] and set(probe.captured) == set(capture),
               f"{tag}: the capture run gave other records or missed {sorted(capture)}")
         run["captured"] = dict(probe.captured)
     probe.close()
     return run
+
+
+def _engine_programs(tag: str, path: str) -> None:
+    """A `map --engine-json` file's step programs: every one captured, and
+    every dispatch after a key's first a replay."""
+    from fem_tpu_torch.pipeline.cli import eager_dispatches, programs_line
+
+    with open(path) as f:
+        progs = json.load(f)["programs"]
+    line = programs_line(progs)
+    log(f"[parallel] {tag}: through the step graphs, keys (tier, Lmax) {line}")
+    check(progs and all(c["segments"] > 0 for p in progs for c in p["cells"])
+          and eager_dispatches(progs) == 0,
+          f"{tag}: a dispatch after its key's first replayed no graph: {line}")
 
 
 def _two_processes(tag: str, base: list, out: str, extra: list) -> tuple[tuple, list, float]:
@@ -1576,7 +1659,8 @@ def phase_parallel(workdir: str, benign_paths: dict, adv_paths: dict,
             f"placed) {time.perf_counter() - t0:.2f} s, device memory allocated "
             f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
         runs[tag] = _grid_run(tag, engine, batches, benign_paths,
-                              shard_capture if tag == "grid_1x4" else None)
+                              shard_capture if tag == "grid_1x4" else None,
+                              turns=tag in ("grid_dp2", "grid_1x4"))
         del engine
         torch.cuda.empty_cache()
 
@@ -1630,11 +1714,7 @@ def phase_parallel(workdir: str, benign_paths: dict, adv_paths: dict,
     engine = MappingEngine(args, ref, index, EngineConfig(
         batch_size=BATCH, cap_occ=80, cap_cand=64, verify_per_read=8, accept_per_read=8,
         index_mesh=make_index_mesh([dev] * 2, 2)))
-    probe = Probe(engine)
-    run = run_engine(engine, probe, batches, "stream")
-    probe.close()
-    _log_run("adversarial_1x2", "pipelined stream, counted run", run)
-    baseline_check("adversarial_1x2", adv_paths, run)
+    run = _grid_run("adversarial_1x2", engine, batches, adv_paths)
     log(f"[parallel] adversarial_1x2: retried_reads {run['retried']}, tier_dispatches "
         f"{run['dispatches']}, host-mapped {run['fallback']} against {adv_fallback_one_device} "
         f"on one device: {run['fallback'] - adv_fallback_one_device} reads host-mapped for "
@@ -1652,20 +1732,32 @@ def phase_parallel(workdir: str, benign_paths: dict, adv_paths: dict,
     base = ["map", "-e", str(E), "-a", str(A), "--ref", benign_paths["fa"], "--index",
             benign_paths["ix"], "--read1", benign_paths["fq"], *CLI_TUNE]
     sam = os.path.join(d, "shards2.sam")
+    ej = os.path.join(d, "shards2.json")
     kernels.reset_launches()
-    rc, err, wall = _run_cli(base + ["--index-shards", "2", "-o", sam])
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        rc, err, wall = _run_cli(base + ["--index-shards", "2", "-o", sam, "--engine-json", ej])
+        torch.cuda.synchronize()
     launched = dict(kernels.launches)
     check(rc == 0, f"cli --index-shards 2 failed: {err[-2000:]}")
+    profiler_counts("cli_index_shards_2", prof, launched)
+    _engine_programs("cli map --index-shards 2", ej)
     mesh_line = [x for x in err.splitlines() if x.startswith("[mesh]")]
-    log(f"[parallel] cli map --index-shards 2 in this process: {wall:.2f} s wall = "
-        f"{NUM_READS / wall:,.1f} reads/s (reference and index load, shard build included); "
-        f"{mesh_line}; kernel launches {launched}")
+    log(f"[parallel] cli map --index-shards 2 in this process, under torch.profiler: "
+        f"{wall:.2f} s wall = {NUM_READS / wall:,.1f} reads/s (reference and index load, "
+        f"shard build included); {mesh_line}; kernel launches {launched}, each seen as often "
+        f"by the profiler")
     check(all(n > 0 for n in launched.values()), "cli --index-shards 2: a kernel never launched")
     baseline_check("cli_index_shards_2", benign_paths,
                    {"digest": _sam_digest(sam), "stats": MappingStats(*counters_from_stderr(err))})
     for tag, extra in (("two_processes_independent", []),
                        ("two_processes_global_mesh", ["--index-shards", "2", "--local-devices", "2"])):
-        digest, counters, wall = _two_processes(tag, base, os.path.join(d, f"{tag}.sam"), extra)
+        ej = os.path.join(d, f"{tag}.json")
+        digest, counters, wall = _two_processes(tag, base, os.path.join(d, f"{tag}.sam"),
+                                                extra + ["--engine-json", ej])
+        for h in range(2):
+            _engine_programs(f"{tag} rank {h}", f"{ej}.host{h:04d}")
         log(f"[parallel] {tag}: {wall:.2f} s wall for both (process start, torch import, index "
             f"load included) = {NUM_READS / wall:,.1f} reads/s")
         baseline_check(tag, benign_paths, {"digest": digest, "stats": MappingStats(*counters)})
@@ -1846,8 +1938,8 @@ def both_launched(launches: dict) -> bool:
 
 
 def scale_rows(tag: str, engine, batch, rows: dict) -> list[dict]:
-    """`batch` mapped once by `engine` with the eager step (a grid's cells
-    are eager anyway); for each row (name -> (call key, test of the wrapper
+    """`batch` mapped once by `engine` with the eager step (a replay calls
+    no wrapper); for each row (name -> (call key, test of the wrapper
     call)), the first call that passes its test is held against its plain
     version (exact) and timed as a kernel-table row."""
     engine.eager_step = True
@@ -1908,6 +2000,15 @@ def phase_scale(workdir: str) -> tuple[dict, list]:
             "myers_shapes": {tuple(int(x) for x in k.split("x")): n
                              for k, n in shapes["banded_myers"].items()}}
     check(len(stages["map_grid"]["cells"]) == 4, "scale: the grid is not (1, 4)")
+    from fem_tpu_torch.pipeline.cli import eager_dispatches, programs_line
+
+    for name in ("map", "map_grid"):
+        progs = stages[name]["programs"]
+        check(progs and eager_dispatches(progs) == 0
+              and all(c["segments"] > 0 for p in progs for c in p["cells"]),
+              f"scale {name}: not through the step graphs: {programs_line(progs)}")
+    check(all(len(p["cells"]) == 4 for p in stages["map_grid"]["programs"]),
+          "scale: the grid's programs are not of four cells")
 
     # The kernels on each map's own inputs.
     ref = fastx.read_fasta(os.path.join(d, "ref.fa"))

@@ -18,7 +18,8 @@ taken under a lock: the engine's drain threads launch retry batches beside
 the submitting thread. A CUDA graph launches its kernels at every replay
 but runs their wrappers once, at capture: `recording_launches` takes the
 capturing thread's counts aside (the capture launches nothing), and
-`add_launches` adds them once a replay.
+`add_launches` adds them once a replay. A grid records a capture a cell
+segment, and adds each cell's at each replay.
 """
 
 from __future__ import annotations

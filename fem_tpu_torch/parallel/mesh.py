@@ -9,13 +9,17 @@ device holds the whole index, or `(n_dp, n_ip)` over ("data", "index"),
 where the index is also split by reference coordinate
 (parallel/sharded_index.py). A grid may name one card more than once.
 
-`map_grid` runs `map_core_steps` for every cell of the grid this process
-holds, in lockstep: each cell's work is enqueued on its device's stream (so
-cells on different cards overlap, cells on one card run in turn), and at
-each reduction across index shards the cells' values meet in a
-`GridReducer`, the reduce hook of the step, which also joins the other
-processes' cells of a data row over `torch.distributed` when the grid spans
-processes (parallel/multihost.py builds such grids).
+A `GridStep` runs `map_core_steps` for every cell of the grid this
+process holds, in lockstep, cut into segments at the points where the
+cells of a data row meet: none on a data grid (a cell's step is one
+segment), the truncation bound's max and the per-read sums and maxes on an
+index grid (three segments). Each cell's work is enqueued on its device's
+stream (so cells on different cards overlap, cells on one card run in
+turn), and between segments the cells' values meet in a `GridReducer`,
+which also joins the other processes' cells of a data row over
+`torch.distributed` when the grid spans processes (parallel/multihost.py
+builds such grids). The engine runs the segments eagerly, or captures each
+into a CUDA graph and replays them (pipeline/engine.py:GridProgram).
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from fem_tpu_torch.pipeline.engine import map_core_steps, pack_result
+from fem_tpu_torch.pipeline.engine import map_core_steps, unpack_input
 
 DATA_AXIS = "data"
 INDEX_AXIS = "index"
@@ -131,26 +135,34 @@ _ROW_OPS = {"max": dist.ReduceOp.MAX, "sum": dist.ReduceOp.SUM}
 
 class GridReducer:
     """The reduce hook of `map_core_steps` on a grid: "max" and "sum" over
-    the cells of each data row (its index shards), "sum_all" over every
-    cell of the grid. A value is a tensor or a tuple of tensors, reduced as
-    one int64 vector; each cell gets the reduced value on its own device."""
+    the cells of each data row (its index shards); a tuple of ops reduces a
+    tuple of values, one each. A value is a tensor or a tuple of tensors,
+    reduced as one int64 vector; each cell gets the reduced value on its
+    own device, or written into `out` (a cell's static tensors of the same
+    structure: pipeline/engine.py:GridProgram)."""
 
     def __init__(self, mesh: DeviceMesh):
         self.mesh = mesh
         self.cells = mesh.local_cells()
         self.n_dp, self.n_ip = mesh.grid.shape
+        self.needed = self.n_ip > 1  # a row of one cell needs no reduction
 
-    def __call__(self, op: str, values: list) -> list:
-        alone = op == "sum_all" and self.n_dp * self.n_ip == 1
-        if (op != "sum_all" and self.n_ip == 1) or alone:
-            return values  # a row of one cell, or a grid of one
+    def __call__(self, op, values: list, out: list | None = None) -> list:
+        if isinstance(op, tuple):
+            parts = [self(o, [v[j] for v in values],
+                          None if out is None else [x[j] for x in out])
+                     for j, o in enumerate(op)]
+            return [tuple(p[c] for p in parts) for c in range(len(values))]
+        reduced = self._rows(op, values)
+        if out is None:
+            return reduced
+        for dst, src in zip(out, reduced):
+            _copy_into(dst, src)
+        return out
+
+    def _rows(self, op: str, values: list) -> list:
         parts = [_flatten(v) for v in values]
         common = self.cells[0][2]
-        if op == "sum_all":
-            total = sum(p.to(common).sum() for p in parts).reshape(1)
-            if self.mesh.crosses_processes:
-                collective(total, lambda t: dist.all_reduce(t, dist.ReduceOp.SUM), None)
-            return [_unflatten(total.to(p.device).expand_as(p), v) for p, v in zip(parts, values)]
         fill = torch.iinfo(torch.int64).min if op == "max" else 0
         rows = torch.full((self.n_dp, parts[0].numel()), fill, dtype=torch.int64, device=common)
         for (d, _, _), p in zip(self.cells, parts):
@@ -179,7 +191,23 @@ def _unflatten(flat: torch.Tensor, like):
     return tuple(out) if isinstance(like, tuple) else out[0]
 
 
-def _streams_of(streams: dict, *devs) -> contextlib.ExitStack:
+def _copy_into(dst, src) -> None:
+    if isinstance(dst, tuple):
+        for a, b in zip(dst, src):
+            _copy_into(a, b)
+    else:
+        dst.copy_(src)
+
+
+def static_like(value):
+    """Tensors of `value`'s structure, shapes, types and devices, for a
+    graph to read and a reduction to write (uninitialized: no kernel)."""
+    if isinstance(value, tuple):
+        return tuple(static_like(v) for v in value)
+    return torch.empty_like(value)
+
+
+def streams_of(streams: dict, *devs) -> contextlib.ExitStack:
     """The engine's stream current on each of `devs` (each device has a
     current stream of its own): work and copies between them go on those
     streams, and a copy between two devices waits for both."""
@@ -190,82 +218,88 @@ def _streams_of(streams: dict, *devs) -> contextlib.ExitStack:
     return stack
 
 
-def map_grid(
-    mesh: DeviceMesh,
-    indexes: dict,  # (d, i) -> DeviceIndex of cell (d, i)'s shard, on its device
-    codes: np.ndarray,  # (n_dp * Bloc, Lmax) uint8, reads of row d at [d*Bloc, (d+1)*Bloc)
-    lengths: np.ndarray,  # (n_dp * Bloc,) int32
-    *,
-    params,
-    verify_cap: int,  # per cell
-    accept_cap: int,  # per cell
-    globalize_lanes: bool,
-    upload: Callable,  # upload(array, device) -> tensor on device
-    streams: dict,  # device -> torch.cuda.Stream (absent on the CPU)
-) -> list:
-    """One mapping step over this process's cells: their packed results
-    (`pack_result`), in `mesh.local_cells()` order, each on its device's
-    stream. Every cell runs `map_core_steps` on its row's reads and its
-    shard; the steps go in lockstep, meeting at each reduction in a
-    GridReducer. With `globalize_lanes`, a cell's accepted lanes are
-    renumbered over the whole batch (fem_tpu/parallel/mesh.py:61-66):
-    strand * (n_dp * Bloc) + d * Bloc + (l - strand * Bloc); otherwise they
-    stay row-local, in [0, 2 * Bloc)."""
-    cells = mesh.local_cells()
-    n_dp = mesh.grid.shape[0]
-    Bloc = codes.shape[0] // n_dp
-    rows = {}  # (d, device) -> (codes, lengths) on the device
-    gens = []
-    for d, i, dev in cells:
-        with _streams_of(streams, dev):
-            if (d, dev) not in rows:
-                sl = slice(d * Bloc, (d + 1) * Bloc)
-                rows[d, dev] = (upload(codes[sl], dev), upload(lengths[sl], dev))
-            gens.append(map_core_steps(indexes[d, i], *rows[d, dev], params, verify_cap,
-                                       accept_cap))
-    reduce = GridReducer(mesh)
-    sends = [None] * len(gens)
-    outs = [None] * len(gens)
-    while True:
-        asks = []
-        for k, (g, (_, _, dev)) in enumerate(zip(gens, cells)):
-            with _streams_of(streams, dev):
-                try:
-                    asks.append(g.send(sends[k]))
-                except StopIteration as stop:
-                    outs[k] = stop.value
-        if not asks:
-            break
-        if len(asks) != len(gens) or len({op for op, _ in asks}) != 1:
-            raise RuntimeError("grid cells left lockstep")
-        with _streams_of(streams, *(dev for _, _, dev in cells)):
-            sends = reduce(asks[0][0], [v for _, v in asks])
-    segs = []
-    for (d, _, dev), out in zip(cells, outs):
-        with _streams_of(streams, dev):
-            if globalize_lanes:
-                lane = out["a_lane"]
-                strand = (lane >= Bloc).to(lane.dtype)
-                out["a_lane"] = strand * (n_dp * Bloc) + d * Bloc + (lane - strand * Bloc)
-            segs.append(pack_result(out))
-    return segs
+class GridStep:
+    """The mapping step over this process's cells of `mesh` at one shape.
+    Cell (d, i) maps its data row's packed reads (`pack_input`'s rows d *
+    Bloc to (d + 1) * Bloc of the padded batch) against its shard; the
+    cells go in lockstep, cut into segments at the points where a row's
+    cells meet (`advance`), reduced between them by a GridReducer. With
+    `globalize_lanes`, a cell's accepted lanes are renumbered over the
+    whole batch (fem_tpu/parallel/mesh.py:61-66): strand * (n_dp * Bloc) +
+    d * Bloc + (l - strand * Bloc); otherwise they stay row-local, in
+    [0, 2 * Bloc)."""
+
+    def __init__(self, mesh: DeviceMesh, params, verify_cap: int, accept_cap: int,
+                 globalize_lanes: bool):
+        self.mesh, self.params = mesh, params
+        self.verify_cap, self.accept_cap = verify_cap, accept_cap  # per cell
+        self.globalize_lanes = globalize_lanes
+        self.cells = mesh.local_cells()
+        self.reduce = GridReducer(mesh)
+
+    def cell_steps(self, d: int, index, packed: torch.Tensor):
+        """Cell (d, .)'s step on its row's packed reads, as a generator of
+        map_core_steps' points; returns map_core's dict with the lanes
+        globalized. Every op on the device runs inside a `send`."""
+        codes, lengths = unpack_input(packed)
+        out = yield from map_core_steps(index, codes, lengths, self.params,
+                                        self.verify_cap, self.accept_cap)
+        if self.globalize_lanes:
+            Bloc, n_dp = codes.shape[0], self.mesh.grid.shape[0]
+            lane = out["a_lane"]
+            strand = (lane >= Bloc).to(lane.dtype)
+            out["a_lane"] = strand * (n_dp * Bloc) + d * Bloc + (lane - strand * Bloc)
+        return out
+
+    def advance(self, gen, value) -> tuple:
+        """Run one segment of a cell's step: from `value` (the reduced
+        value of the last point, None at the start) to the next point whose
+        reduction the grid needs, (op, value) there; or (None, map_core's
+        dict) at the end. A point the grid need not reduce (a row of one
+        cell) gets its own value back at once."""
+        try:
+            while True:
+                op, value = gen.send(value)
+                if self.reduce.needed:
+                    return op, value
+        except StopIteration as stop:
+            return None, stop.value
+
+    def lockstep(self, asks: list):
+        """The op all cells stopped at (None: all at the end), or raise."""
+        ops = {op for op, _ in asks}
+        if len(ops) != 1:
+            raise RuntimeError(f"grid cells left lockstep: {ops}")
+        return ops.pop()
+
+    def run(self, indexes: dict, rows: dict, streams: dict) -> list:
+        """The step eagerly: `indexes` maps (d, i) to cell (d, i)'s shard,
+        `rows` (d, device) to row d's packed reads on that device. Returns
+        each cell's map_core dict, in `mesh.local_cells()` order, on its
+        device's stream."""
+        gens = [self.cell_steps(d, indexes[d, i], rows[d, dev]) for d, i, dev in self.cells]
+        devs = [dev for _, _, dev in self.cells]
+        sends = [None] * len(gens)
+        while True:
+            asks = []
+            for g, s, dev in zip(gens, sends, devs):
+                with streams_of(streams, dev):
+                    asks.append(self.advance(g, s))
+            op = self.lockstep(asks)
+            if op is None:
+                return [v for _, v in asks]
+            with streams_of(streams, *devs):
+                sends = self.reduce(op, [v for _, v in asks])
 
 
 def make_sharded_map_fn(mesh: DeviceMesh, params, verify_cap_per_shard: int,
-                        accept_cap: int):
+                        accept_cap: int) -> GridStep:
     """The data-parallel step (fem_tpu/parallel/mesh.py:make_sharded_map_fn):
     reads split over the data axis, the whole index on every device, lanes
-    globalized, `total_candidates` summed over the grid. Returns
-    fn(indexes, codes, lengths, upload=..., streams=...) -> map_grid's list.
-    A data grid stays in one process (fem_tpu/pipeline/engine.py:294-300)."""
+    globalized; no reduction, so a cell's step is one segment. A data grid
+    stays in one process (fem_tpu/pipeline/engine.py:294-300)."""
     if mesh.crosses_processes:
         raise ValueError(
             "cross-host pure data parallelism uses the independent multi-host mode "
             "(one engine per host); a cross-host mesh is only for the coordinate-sharded index")
-
-    def fn(indexes, codes, lengths, *, upload, streams):
-        return map_grid(mesh, indexes, codes, lengths, params=params,
-                        verify_cap=verify_cap_per_shard, accept_cap=accept_cap,
-                        globalize_lanes=True, upload=upload, streams=streams)
-
-    return fn
+    return GridStep(mesh, params, verify_cap_per_shard, accept_cap, globalize_lanes=True)

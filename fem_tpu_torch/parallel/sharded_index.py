@@ -31,7 +31,7 @@ import torch
 from fem_tpu_torch.index.storage import FemIndex
 from fem_tpu_torch.io.fastx import Reference
 from fem_tpu_torch.ops.types import DeviceIndex, device_index_shard
-from fem_tpu_torch.parallel.mesh import DeviceMesh, map_grid
+from fem_tpu_torch.parallel.mesh import DeviceMesh, GridStep
 
 _ROW_BYTES = 64  # the slices' padding rule, kept so they equal the JAX build's
 _CHUNK = 1 << 26  # occurrences a pass of the sharded build takes at a time
@@ -228,18 +228,14 @@ def make_index_sharded_map_fn(
     verify_cap_per_shard: int,
     accept_cap_per_shard: int,
     gather_rows: bool = False,
-):
+) -> GridStep:
     """The step over a ("data", "index") grid
     (fem_tpu/parallel/sharded_index.py:make_index_sharded_map_fn): reads
     split over `data`, the index over `index`, the whole mapping step per
-    cell, the cells of a data row reduced together inside the step. With
-    `gather_rows` (a grid over processes) lanes stay row-local, [0, 2 *
-    Bloc), so a row's segments unpack like a one-row batch once the drain
-    has gathered them; otherwise they are globalized over the batch.
-    Returns fn(indexes, codes, lengths, upload=..., streams=...)."""
-    def fn(indexes, codes, lengths, *, upload, streams):
-        return map_grid(mesh, indexes, codes, lengths, params=params,
-                        verify_cap=verify_cap_per_shard, accept_cap=accept_cap_per_shard,
-                        globalize_lanes=not gather_rows, upload=upload, streams=streams)
-
-    return fn
+    cell, the cells of a data row reduced together between its three
+    segments. With `gather_rows` (a grid over processes) lanes stay
+    row-local, [0, 2 * Bloc), so a row's segments unpack like a one-row
+    batch once the drain has gathered them; otherwise they are globalized
+    over the batch."""
+    return GridStep(mesh, params, verify_cap_per_shard, accept_cap_per_shard,
+                    globalize_lanes=not gather_rows)

@@ -573,6 +573,26 @@ def _dump_engine_json(path: str, engine, load_s: dict, items: list, t_stream: fl
         f.write("\n")
 
 
+def programs_line(programs: list) -> str:
+    """MappingEngine.report()'s step programs as one line: each key
+    (tier, Lmax) with its dispatches and replays, and each cell's segments,
+    capture seconds, graph MiB and replays."""
+    def mib(x):
+        return "not captured" if x is None else f"{x:.1f} MiB"
+
+    return "; ".join(
+        f"{tuple(p['key'])}: {p['dispatches']} dispatches, {p['replays']} replays, cells "
+        + ", ".join(f"{tuple(c['cell'])} {c['segments']} graph(s) captured in "
+                    f"{c['capture_s'] or 0:.3f} s, {mib(c['graph_MiB'])}" for c in p["cells"])
+        for p in programs)
+
+
+def eager_dispatches(programs: list) -> int:
+    """Dispatches past each key's first that replayed no graph: 0 when the
+    step ran through its graphs throughout."""
+    return sum(p["dispatches"] - 1 - p["replays"] for p in programs if p["dispatches"])
+
+
 def _print_grid(grid) -> None:
     """What the grid is and where its cells run, on stderr: a grid that
     names one card more than once says so."""

@@ -25,12 +25,16 @@ out again as pipelined tier-1 batches; `watermark_reads` is the longest
 stream prefix whose records the consumer has had, retries included.
 
 On a grid (`EngineConfig.mesh`: reads over a data axis; `.index_mesh`:
-also the index split by coordinate over an index axis), each cell maps its
-row's reads against its shard and packs a segment of its own; the drain
-reads them all. A grid that spans processes (parallel/multihost.py) joins
-each data row's cells over torch.distributed; its drains then run on the
-consumer thread, in stream order, because every process must issue the
-same collectives in the same order.
+also the index split by coordinate over an index axis) the step runs as a
+`GridProgram` per (tier, Lmax), the counterpart of fem_tpu's jitted
+sharded program: every batch is padded to its tier's batch size and split
+evenly over the data rows; each cell maps its row's reads against its
+shard and packs a segment of its own, and on a card each cell's step is a
+CUDA graph a segment between the reductions of its data row. The drain
+reads every segment. A grid that spans processes (parallel/multihost.py)
+joins each data row's cells over torch.distributed; its drains then run
+on the consumer thread, in stream order, because every process must issue
+the same collectives in the same order.
 """
 
 from __future__ import annotations
@@ -171,18 +175,23 @@ def map_core_steps(
     accept_cap: int = 4096,
     mark=None,
 ):
-    """map_core as a generator, for one cell of a grid: at each reduction
-    across index shards it yields (op, value) and takes back the reduced
-    value (the caller's reduce hook: parallel/mesh.py:GridReducer). The
-    ops: "max" or "sum" over the index shards of the cell's data row,
-    "sum_all" over every cell. Returns map_core's dict.
+    """map_core as a generator, for one cell of a grid: at each point
+    where the cells of a data row meet it yields (op, value) and takes back
+    the reduced value (the caller's reduce hook:
+    parallel/mesh.py:GridReducer). An op is "max" or "sum" over the index
+    shards of the cell's data row; a point that carries several reductions
+    yields a tuple of ops and a tuple of values, one each. No device work
+    lies between the reductions of one point, so a grid cuts the step
+    there (parallel/mesh.py:GridStep). Returns map_core's dict.
 
-    The reductions (fem_tpu/parallel/sharded_index.py:302-319): the
-    last-seed truncation bound (a max, in the middle of generation); the
-    per-read candidate counts (sum); the fallback, inherent and retry bits
-    (max), so that a read that overflows any shard retries whole and is
-    counted by no shard; the verify-slab total (sum_all). The fallback bits
-    and the counter sums over the kept reads come after them."""
+    The points (fem_tpu/parallel/sharded_index.py:302-319): the last-seed
+    truncation bound (a max, in the middle of generation); then the
+    per-read candidate counts (sum) with the fallback, inherent and retry
+    bits (max), so that a read that overflows any shard retries whole and
+    is counted by no shard. The fallback bits and the counter sums over the
+    kept reads come after them. `total_candidates` is the cell's own
+    verify-slab total: fem_tpu's sharded program sums it over the grid, and
+    no reader of either package reads it from a grid."""
     mark = mark or (lambda stage: None)
     e = params.error_threshold
     B = codes.shape[0]
@@ -235,10 +244,8 @@ def map_core_steps(
     ok_lane = ok_v & ok_a
     retry = ~(ok_lane[:B] & ok_lane[B:])
 
-    num_candidates = yield "sum", cand.num_candidates
-    needs_fallback, inherent_fallback, retry = yield "max", (
-        cand.needs_fallback, cand.inherent_fallback, retry)
-    total_all = yield "sum_all", total
+    num_candidates, (needs_fallback, inherent_fallback, retry) = yield ("sum", "max"), (
+        cand.num_candidates, (cand.needs_fallback, cand.inherent_fallback, retry))
 
     # Per-read fallback bits and the counter sums over the other reads
     # (fem_tpu pack_outputs); dp sums in int64, so no 16/16 split.
@@ -258,7 +265,7 @@ def map_core_steps(
         "dp_total": cand.dp_total,
         "needs_fallback": needs_fallback,
         "inherent_fallback": inherent_fallback,
-        "total_candidates": total_all,
+        "total_candidates": total,
         "fb": fb,
         "inherent": inherent,
         "sum_nc": (num_candidates.long() * keep).sum(),
@@ -420,6 +427,7 @@ class StepProgram:
         self.launches = None  # Counter of (kernel, shape) a replay launches
         self.capture_s = None  # seconds the capture took
         self.pool_bytes = None  # device memory of the graph's pool, at its capture
+        self.dispatches = 0
         self.replays = 0
 
     def body(self, packed: torch.Tensor, mark=None) -> torch.Tensor:
@@ -431,6 +439,8 @@ class StepProgram:
         """Dispatch one packed batch (`pack_input`'s, in pinned memory on a
         card) without waiting for it: (the result on the host, the events
         a drain waits on, the StageTimer events)."""
+        with self.lock:
+            self.dispatches += 1
         if self.stream is None:  # the CPU
             return self.body(packed), [], None
         events = None
@@ -473,6 +483,195 @@ class StepProgram:
             self.capture_s = time.perf_counter() - t0
             self.pool_bytes = _pool_bytes(graph.pool())
         self.graph, self.static_in, self.static_out, self.launches = graph, static_in, out, rec
+
+    def describe(self) -> dict:
+        """GridProgram.describe's keys, for the one device as one cell."""
+        return {"key": list(self.key), "dispatches": self.dispatches, "replays": self.replays,
+                "cells": [{"cell": [0, 0], "device": str(self.device),
+                           "segments": int(self.graph is not None),
+                           "capture_s": self.capture_s,
+                           "graph_MiB": None if self.pool_bytes is None else self.pool_bytes / 2**20,
+                           "replays": self.replays}]}
+
+
+class _CellGraphs:
+    """One grid cell's CUDA graphs: a graph a segment, in one memory pool,
+    replayed in the order they were captured."""
+
+    def __init__(self, cell: tuple, device: torch.device):
+        self.cell, self.device = cell, device
+        self.graphs: list = []
+        self.pool = None
+        self.launches = collections.Counter()  # (kernel, shape) a replay launches
+        self.capture_s = 0.0
+        self.pool_bytes = None
+
+
+class GridProgram:
+    """The grid's step at one (tier, Lmax): the port of fem_tpu's jitted
+    sharded program (`jax.jit(shard_map(...))`,
+    fem_tpu/parallel/mesh.py:37-81 and parallel/sharded_index.py:244-349),
+    one per key like its `_fn_for` (fem_tpu/pipeline/engine.py:618-707). Its
+    input is the batch padded to the tier's batch size and split evenly over
+    the data axis (fem_tpu/pipeline/engine.py:759-768, then P(DATA_AXIS)):
+    row d is the packed rows [d * Bloc, (d + 1) * Bloc), uploaded once to
+    each device that holds a cell of it.
+
+    `step` (parallel/mesh.py:GridStep) cuts each cell's step into segments
+    at the points where a row's cells meet: one segment a cell on a data
+    grid, three on an index grid. On a card each segment of each cell is
+    captured into a CUDA graph on the cell's device, a cell's segments in
+    one memory pool. A dispatch copies the rows into the static inputs,
+    replays segment k of every cell on its device's stream, reduces the
+    values the cells stopped at eagerly (GridReducer, over
+    torch.distributed where the grid spans processes: gloo cannot be
+    captured, and nothing needs it to be) into the static tensors segment
+    k + 1 reads, and so on; last, each cell's packed result goes to one
+    pinned host buffer. The program's lock is held from the first upload to
+    the last result copy: drain threads submit retries too, and the static
+    buffers must never see two batches interleaved.
+
+    As StepProgram's, the key's first dispatch runs eagerly on the engine's
+    streams and is its result; the capture follows, on private streams, in
+    thread-local mode, under the engine's capture lock. A capture that
+    fails raises, and so does one whose kernels differ from the eager
+    dispatch's (`kernels.recording_launches`); each replay adds the
+    launches every cell's capture recorded. With `eager` (the engine's
+    `eager_step`) and on the CPU the same segments run eagerly."""
+
+    def __init__(self, key: tuple, step, indexes: dict, streams: dict,
+                 capture_lock: threading.Lock):
+        self.key, self.step, self.indexes = key, step, indexes
+        self.streams, self._capture_lock = streams, capture_lock
+        self.lock = threading.Lock()
+        # (row, device) pairs this process uploads: one a row and device.
+        self.rows = list(dict.fromkeys((d, dev) for d, _, dev in step.cells))
+        self.cells = [_CellGraphs((d, i), dev) for d, i, dev in step.cells]
+        self.captured = False
+        self.dispatches = 0
+        self.replays = 0
+        self._static_rows: dict = {}
+        self._points: list = []  # [(op, the cells' values)] where segment k stops
+        self._sends: list = []  # the cells' static inputs of segment k + 1
+        self._outs: list = []  # each cell's packed result
+
+    def run(self, rows: dict, eager: bool = False):
+        """Dispatch one padded batch, `rows` {d: row d's packed reads} (in
+        pinned memory on a card), without waiting for it: (every cell's
+        packed result in one host buffer, in `mesh.local_cells()` order,
+        the events a drain waits on)."""
+        if not self.streams:  # the CPU
+            with self.lock:
+                self.dispatches += 1
+            outs = self.step.run(self.indexes, {(d, dev): rows[d] for d, dev in self.rows}, {})
+            return torch.cat([pack_result(out) for out in outs]), []
+        devs = [c.device for c in self.cells]
+        with self.lock:
+            self.dispatches += 1
+            if eager or not self.captured:
+                on_dev = {}
+                for d, dev in self.rows:
+                    with torch.cuda.stream(self.streams[dev]):
+                        on_dev[d, dev] = rows[d].to(dev, non_blocking=True)
+                with kernels.recording_launches() as warm:
+                    outs = self.step.run(self.indexes, on_dev, self.streams)
+                kernels.add_launches(warm)
+                for k, dev in enumerate(devs):
+                    with torch.cuda.stream(self.streams[dev]):
+                        outs[k] = pack_result(outs[k])
+            else:
+                for d, dev in self.rows:
+                    with torch.cuda.stream(self.streams[dev]):
+                        self._static_rows[d, dev].copy_(rows[d], non_blocking=True)
+                self._replay(devs)
+                outs = self._outs
+            w = outs[0].numel()
+            host = torch.empty(len(outs) * w, dtype=torch.int64, pin_memory=True)
+            for k, (seg, dev) in enumerate(zip(outs, devs)):
+                with torch.cuda.stream(self.streams[dev]):
+                    host[k * w : (k + 1) * w].copy_(seg, non_blocking=True)
+            ready = []
+            for stream in self.streams.values():
+                ready.append(torch.cuda.Event())
+                ready[-1].record(stream)
+            if not (eager or self.captured):
+                self._capture(on_dev, warm)
+        return host, ready
+
+    def _replay(self, devs: list) -> None:
+        from fem_tpu_torch.parallel.mesh import streams_of
+
+        for k in range(len(self.cells[0].graphs)):
+            for cell in self.cells:
+                with torch.cuda.stream(self.streams[cell.device]):
+                    cell.graphs[k].replay()
+            if k < len(self._points):
+                op, values = self._points[k]
+                with streams_of(self.streams, *devs):
+                    self.step.reduce(op, values, out=self._sends[k])
+        self.replays += 1
+        for cell in self.cells:
+            kernels.add_launches(cell.launches)
+
+    def _capture(self, static_rows: dict, warm: collections.Counter) -> None:
+        """Capture every cell's segments over `static_rows` (the warm-up's
+        uploads, which the graphs keep). Between two segments nothing is
+        reduced: the captured kernels did not run. Each cell's next segment
+        reads static tensors of the values' structure, which a replay's
+        reductions write."""
+        from fem_tpu_torch.parallel.mesh import static_like
+
+        step = self.step
+        with self._capture_lock:
+            sides = {dev: torch.cuda.Stream(dev) for dev in self.streams}
+            gens = [step.cell_steps(d, self.indexes[d, i], static_rows[d, dev])
+                    for d, i, dev in step.cells]
+            sends = [None] * len(gens)
+            try:
+                while True:
+                    asks = []
+                    for cell, g, value in zip(self.cells, gens, sends):
+                        graph = torch.cuda.CUDAGraph()
+                        t0 = time.perf_counter()
+                        with kernels.recording_launches() as rec, torch.cuda.graph(
+                                graph, pool=cell.pool, stream=sides[cell.device],
+                                capture_error_mode="thread_local"):
+                            op, v = step.advance(g, value)
+                            asks.append((op, pack_result(v) if op is None else v))
+                        cell.capture_s += time.perf_counter() - t0
+                        cell.pool = graph.pool()
+                        cell.graphs.append(graph)
+                        cell.launches.update(rec)
+                    op = step.lockstep(asks)
+                    if op is None:
+                        break
+                    values = [v for _, v in asks]
+                    self._points.append((op, values))
+                    sends = [static_like(v) for v in values]
+                    self._sends.append(sends)
+            except Exception as exc:
+                raise RuntimeError(
+                    f"CUDA graph capture of the grid step at (tier, Lmax) = {self.key} "
+                    f"failed: {exc}") from exc
+            for cell in self.cells:
+                cell.pool_bytes = _pool_bytes(cell.pool)
+        captured = sum((c.launches for c in self.cells), collections.Counter())
+        if captured != warm:
+            raise RuntimeError(
+                f"the grid step's graphs at (tier, Lmax) = {self.key} launch {dict(captured)}, "
+                f"its eager dispatch launched {dict(warm)}")
+        self._static_rows = static_rows
+        self._outs = [v for _, v in asks]
+        self.captured = True
+
+    def describe(self) -> dict:
+        """The key, dispatches and replays, and each cell's segments,
+        capture seconds, graph MiB and replays."""
+        return {"key": list(self.key), "dispatches": self.dispatches, "replays": self.replays,
+                "cells": [{"cell": list(c.cell), "device": str(c.device),
+                           "segments": len(c.graphs), "capture_s": c.capture_s,
+                           "graph_MiB": None if c.pool_bytes is None else c.pool_bytes / 2**20,
+                           "replays": self.replays} for c in self.cells]}
 
 
 def _pool_bytes(pool) -> int:
@@ -558,11 +757,12 @@ class MappingEngine:
         self._watermark_reads = 0
         self.consumed_reads = 0
         self.stage_timer: StageTimer | None = None  # one device only; needs eager_step
-        # One device: the step programs by (tier, Lmax). `eager_step` runs
-        # their bodies eagerly on the card, the counterpart of
-        # jax.disable_jit(), for what a graph's replay never calls: the
-        # StageTimer's events and wrappers of the kernels' call sites.
-        self.programs: Dict[tuple, StepProgram] = {}
+        # The step programs by (tier, Lmax): StepPrograms on one device,
+        # GridPrograms on a grid. `eager_step` runs their bodies eagerly on
+        # the card, the counterpart of jax.disable_jit(), for what a graph's
+        # replay never calls: the StageTimer's events and wrappers of the
+        # kernels' call sites.
+        self.programs: Dict[tuple, "StepProgram | GridProgram"] = {}
         self.eager_step = False
         self._programs_lock = threading.Lock()
         self._capture_lock = threading.Lock()
@@ -570,8 +770,9 @@ class MappingEngine:
     def report(self) -> dict:
         """What the engine did and holds, for a caller to serialize:
         retried, dispatched and host-mapped reads, each device's peak
-        memory, and each grid cell's index (occurrences, reference bytes,
-        bytes in all)."""
+        memory, each step program (its key, dispatches and replays, and each
+        cell's segments, capture seconds, graph MiB and replays), and each
+        grid cell's index (occurrences, reference bytes, bytes in all)."""
         cells = {(0, 0): self.dindex} if self.dindex is not None else self._cell_index
         return {
             "retried_reads": self.retried_reads,
@@ -580,6 +781,7 @@ class MappingEngine:
             "fallback_reads": self.fallback_reads,
             "peak_device_bytes": {str(d): torch.cuda.max_memory_allocated(d)
                                   for d in sorted(self._streams, key=str)},
+            "programs": [p.describe() for _, p in sorted(self.programs.items())],
             "cells": [{"cell": list(key), "occurrences": int(ix.occ.numel()),
                        "ref_bytes": int(ix.ref_flat.numel()), "nbytes": ix.nbytes()}
                       for key, ix in sorted(cells.items())],
@@ -682,20 +884,16 @@ class MappingEngine:
         n_dp, n_ip = self._mesh_shape()
         return verify_cap // (n_dp * n_ip), max(accept_cap // (n_dp * n_ip), 8)
 
-    def _row_reads(self, n: int) -> int:
-        """Reads a data row takes of an n-read batch (the batch is padded
-        with empty reads to a multiple of the data axis)."""
+    def _segment_reads(self, tier: int) -> int:
+        """Reads in one segment of a dispatch's result: every dispatch is
+        padded to its tier's batch size, which a grid splits evenly over
+        its data rows."""
         n_dp, _ = self._mesh_shape()
-        return -(-n // n_dp)
+        return self._tier(tier).batch_size // n_dp
 
-    def _segment_reads(self, n: int, tier: int) -> int:
-        """Reads in one segment of an n-read dispatch's result: on one
-        device the tier's batch size (the step is padded to it), on a grid
-        a data row's share."""
-        return self._tier(tier).batch_size if self.grid is None else self._row_reads(n)
-
-    def _program(self, tier: int, Lmax: int) -> StepProgram:
-        """The step program of (tier, Lmax), made at its first use."""
+    def _program(self, tier: int, Lmax: int):
+        """The step program of (tier, Lmax), made at its first use: a
+        StepProgram on one device, a GridProgram on a grid."""
         key = (tier, Lmax)
         with self._programs_lock:
             prog = self.programs.get(key)
@@ -703,34 +901,36 @@ class MappingEngine:
                 tc = self._tier(tier)
                 params = FilterParams.from_args(
                     self.args, Lmax, cap_occ=tc.cap_occ, cap_cand=tc.cap_cand)
-                prog = self.programs[key] = StepProgram(
-                    key, self.dindex, params, *self._caps(tc), self.device,
-                    self._stream, self._capture_lock)
+                if self.grid is None:
+                    prog = StepProgram(key, self.dindex, params, *self._caps(tc), self.device,
+                                       self._stream, self._capture_lock)
+                else:
+                    prog = GridProgram(key, self._grid_step(params, tc), self._cell_index,
+                                       self._streams, self._capture_lock)
+                self.programs[key] = prog
         return prog
 
-    def _upload(self, array: np.ndarray, device: torch.device | None = None) -> torch.Tensor:
-        """A host array on a device (the engine's by default): staged in
-        pinned memory and copied without blocking the submitting thread
-        (on the CPU, as is)."""
-        t = torch.from_numpy(np.ascontiguousarray(array))
-        device = device or self.device
-        if device.type != "cuda":
-            return t
-        staged = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-        staged.copy_(t)
-        return staged.to(device, non_blocking=True)
+    def _packed(self, batch: ReadBatch, tc: TierConfig) -> torch.Tensor:
+        """The batch padded to the tier's batch size and packed
+        (`pack_input`, into pinned memory on a card); the native reader's
+        `packed` buffer as it is, where it has that shape and is pinned on
+        a card."""
+        pin = bool(self._streams)
+        packed = batch.packed
+        if (packed is None or tuple(packed.shape) != (tc.batch_size, batch.codes.shape[1] + 4)
+                or (pin and not packed.is_pinned())):
+            packed = pack_input(batch.codes[: batch.num_reads], batch.lengths, tc.batch_size, pin)
+        return packed
 
     def submit_batch(self, batch: ReadBatch, tier: int = 0, origins: list | None = None):
         """Enqueue the device step of one batch and the copy of its result,
         without waiting for either; pair with `drain_batch`. `tier` selects
         the capacity rung: 0 = the config's own caps, >= 1 = the retry
-        ladder for reads that overflowed a smaller tier. On one device the
-        batch is padded to the tier's batch size and packed (`pack_input`,
-        into pinned memory on a card; the native reader's `packed` buffer as
-        it is, where it has that shape and is pinned on a card) and goes to
-        the (tier, Lmax) step program. Drain threads call
-        this too (retries); the program enters the engine's stream itself:
-        the current stream is per thread."""
+        ladder for reads that overflowed a smaller tier. The batch is padded
+        to the tier's batch size and packed (`_packed`) and goes to the
+        (tier, Lmax) step program, on a grid split evenly over the data
+        rows. Drain threads call this too (retries); the program enters the
+        engine's streams itself: the current stream is per thread."""
         tc = self._tier(tier)
         n = batch.num_reads
         if n > tc.batch_size:
@@ -742,29 +942,24 @@ class MappingEngine:
                 self.dispatches_by_tier[tier] += 1
         Lmax = batch.codes.shape[1]
         if self.grid is not None:
-            params = FilterParams.from_args(
-                self.args, Lmax, cap_occ=tc.cap_occ, cap_cand=tc.cap_cand)
-            flat, ready = self._submit_grid(batch, tc, params)
+            flat, ready = self._submit_grid(batch, tier, tc)
             return self._register_pending(batch, flat, ready, tier, origins, None)
         timer = self.stage_timer
         if timer is not None and self._stream is not None and not self.eager_step:
             raise ValueError("a StageTimer times the eager step: set engine.eager_step")
-        pin = self._stream is not None
-        packed = batch.packed
-        if (packed is None or tuple(packed.shape) != (tc.batch_size, Lmax + 4)
-                or (pin and not packed.is_pinned())):
-            packed = pack_input(batch.codes[:n], batch.lengths, tc.batch_size, pin)
-        flat, ready, events = self._program(tier, Lmax).run(packed, self.eager_step, timer)
+        flat, ready, events = self._program(tier, Lmax).run(
+            self._packed(batch, tc), self.eager_step, timer)
         return self._register_pending(batch, flat, ready, tier, origins, events)
 
-    def _submit_grid(self, batch: ReadBatch, tc: TierConfig, params: FilterParams):
-        """One step over the grid's cells in this process: the batch padded
-        with empty reads to n_dp rows of equal size, each cell's segment
-        copied into one host buffer (segments in `local_cells` order),
-        an event a device after its copies."""
-        n, Lmax = batch.num_reads, batch.codes.shape[1]
+    def _submit_grid(self, batch: ReadBatch, tier: int, tc: TierConfig):
+        """One step over the grid's cells in this process, through the
+        (tier, Lmax) GridProgram: the batch padded to the tier's batch size
+        and split into n_dp rows of batch_size / n_dp reads, as fem_tpu's
+        sharded program takes it; each cell's packed result copied into
+        one host buffer (segments in `local_cells` order), an event a
+        device after its copies."""
+        Lmax = batch.codes.shape[1]
         n_dp, _ = self._mesh_shape()
-        Bloc = self._row_reads(n)
         if self.config.index_mesh is not None:
             e = self.args.error_threshold
             if Lmax + 2 * e > self._sharded_halo:
@@ -775,28 +970,15 @@ class MappingEngine:
                     f"({self._sharded_halo}); rebuild with a larger halo")
         if tc.batch_size % n_dp:
             raise ValueError(f"batch size {tc.batch_size} not divisible by data mesh {n_dp}")
-        codes = np.full((n_dp * Bloc, Lmax), 4, np.uint8)
-        codes[:n] = batch.codes[:n]
-        lengths = np.zeros(n_dp * Bloc, np.int32)
-        lengths[:n] = batch.lengths[:n]
-        segs = self._grid_fn(params, tc)(
-            self._cell_index, codes, lengths, upload=self._upload, streams=self._streams)
-        if not self._streams:
-            return torch.cat(segs), []
-        w = segs[0].numel()
-        host = torch.empty(len(segs) * w, dtype=torch.int64, pin_memory=True)
-        for k, (seg, (_, _, dev)) in enumerate(zip(segs, self.grid.local_cells())):
-            with torch.cuda.stream(self._streams[dev]):
-                host[k * w : (k + 1) * w].copy_(seg, non_blocking=True)
-        ready = []
-        for stream in self._streams.values():
-            ready.append(torch.cuda.Event())
-            ready[-1].record(stream)
-        return host, ready
+        Bloc = tc.batch_size // n_dp
+        packed = self._packed(batch, tc)
+        prog = self._program(tier, Lmax)
+        return prog.run({d: packed[d * Bloc : (d + 1) * Bloc] for d, _ in prog.rows},
+                        self.eager_step)
 
-    def _grid_fn(self, params: FilterParams, tc: TierConfig):
-        """The grid's step at these shapes (parallel/mesh.py,
-        parallel/sharded_index.py)."""
+    def _grid_step(self, params: FilterParams, tc: TierConfig):
+        """The grid's step at these shapes, cut into its segments
+        (parallel/mesh.py:GridStep)."""
         verify_cap, accept_cap = self._cell_caps(tc)
         if self.config.index_mesh is not None:
             from fem_tpu_torch.parallel.sharded_index import make_index_sharded_map_fn
@@ -862,7 +1044,7 @@ class MappingEngine:
             self.stage_timer.collect(events, tier)
         n = batch.num_reads
         n_dp, n_ip = self._mesh_shape()
-        Bloc = self._segment_reads(n, tier)
+        Bloc = self._segment_reads(tier)
         acc_cap = self._cell_caps(self._tier(tier))[1]
         host = unpack_result(flat.numpy(), acc_cap, Bloc, n_dp * n_ip)
         # Segments are data-row-major; a row's index shards carry identical
@@ -938,7 +1120,7 @@ class MappingEngine:
         mesh = self.grid
         n = batch.num_reads
         n_dp, n_ip = self._mesh_shape()
-        Bloc = self._row_reads(n)
+        Bloc = self._segment_reads(tier)
         acc_cap = self._cell_caps(self._tier(tier))[1]
         rows = gather_rows(mesh, flat.reshape(len(mesh.local_cells()), -1))
         me = mesh.rank

@@ -373,3 +373,40 @@ def test_grid_on_cuda_matches_golden(cuda, small_reference, small_index, default
     assert dataclasses.asdict(stats) == dataclasses.asdict(gstats)
     cells = len(devs)
     assert kernels.launches["filter_tail"] >= cells and kernels.launches["banded_myers"] >= cells
+
+
+@pytest.mark.parametrize("grid", ["data_2", "index_1x2", "index_2x2"])
+def test_grid_program_on_cuda_replays(cuda, small_reference, small_index, default_args, grid):
+    """A grid's GridProgram on the card: the key's first dispatch eager,
+    then every cell's segments captured (one a cell on a data grid, three
+    on an index grid); later dispatches replay them, a short batch too,
+    and count each cell's kernels once a replay; the eager step gives the
+    same bytes."""
+    from fem_tpu_torch.parallel.mesh import make_index_mesh, make_mesh
+
+    seqs, ref = small_reference
+    devs = ["cuda:0"] * (2 if grid == "data_2" else int(grid[-3]) * int(grid[-1]))
+    kw = ({"mesh": make_mesh(devs)} if grid == "data_2"
+          else {"index_mesh": make_index_mesh(devs, int(grid[-1]))})
+    engine = MappingEngine(default_args, ref, small_index,
+                           EngineConfig(batch_size=64, cap_occ=80, cap_cand=16,
+                                        verify_per_read=8, tiers=(), **kw))
+    reads = sim.simulate_reads(seqs, 64, read_length=100, max_errors=2, seed=38)
+    full, short = _batch(reads), _batch(reads[:41])
+    want = [engine.map_batch(b) for b in (full, short)]  # eager, then the first replay
+    kernels.reset_launches()
+    got = [engine.map_batch(b) for b in (full, short)]
+    assert got == want
+    prog = engine.programs[0, 128]
+    assert (prog.dispatches, prog.replays) == (4, 3)
+    segments = 1 if grid == "data_2" else 3
+    assert len(prog.cells) == len(devs)
+    assert all(len(c.graphs) == segments and c.pool_bytes > 0 for c in prog.cells)
+    assert kernels.launches == {"filter_tail": 2 * len(devs), "banded_myers": 2 * len(devs)}
+    engine.eager_step = True
+    assert [engine.map_batch(b) for b in (full, short)] == want
+    assert prog.replays == 3
+    grecs, gstats = GoldenMapper(default_args, ref, small_index).map_reads(
+        short.names, short.seqs, short.quals)
+    assert b"".join(want[1][0]) == b"".join(grecs)
+    assert dataclasses.asdict(want[1][1]) == dataclasses.asdict(gstats)

@@ -19,7 +19,8 @@ from fem_tpu.parallel import mesh as jmesh
 from fem_tpu.pipeline.engine import unpack_outputs
 from fem_tpu_torch.ops.types import FilterParams, device_index_from_host
 from fem_tpu_torch.parallel.mesh import DeviceMesh, make_mesh, make_sharded_map_fn
-from fem_tpu_torch.pipeline.engine import EngineConfig, MappingEngine, unpack_result
+from fem_tpu_torch.pipeline.engine import (
+    EngineConfig, MappingEngine, pack_input, pack_result, unpack_result)
 from tests.test_engine import _batch_from_reads
 
 torch.set_num_threads(1)
@@ -92,10 +93,13 @@ def test_lane_globalization_equals_jax_mesh(small_reference, small_index, defaul
     tparams = FilterParams.from_args(default_args, Lmax, cap_occ=256, cap_cand=128)
     grid = make_mesh(["cpu"] * n)
     index = device_index_from_host(small_index, ref, "cpu")
-    segs = make_sharded_map_fn(grid, tparams, verify_cap, accept_cap)(
-        {(d, 0): index for d in range(n)}, batch.codes, batch.lengths.astype(np.int32),
-        upload=lambda a, dev: torch.from_numpy(np.ascontiguousarray(a)), streams={})
-    got = unpack_result(torch.cat(segs).numpy(), accept_cap, B // n, n)
+    Bloc = B // n
+    rows = {(d, torch.device("cpu")): pack_input(batch.codes[d * Bloc : (d + 1) * Bloc],
+                                                 batch.lengths[d * Bloc : (d + 1) * Bloc], Bloc)
+            for d in range(n)}
+    outs = make_sharded_map_fn(grid, tparams, verify_cap, accept_cap).run(
+        {(d, 0): index for d in range(n)}, rows, streams={})
+    got = unpack_result(torch.cat([pack_result(o) for o in outs]).numpy(), accept_cap, B // n, n)
     np.testing.assert_array_equal(got["n_accepted"], want["n_accepted"])
     assert (got["n_accepted"] > 0).all()
     for s in range(n):

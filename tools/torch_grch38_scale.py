@@ -30,7 +30,8 @@ The tool's process holds file paths, not indexes: every build and map is a
 process of its own, whose peak RSS (os.wait4) is printed beside its
 seconds; a map also writes --engine-json (peak device memory, retries,
 kernel launches by shape, each grid cell's occurrences and reference
-bytes). fem_baseline's reads/s are net of its load: its wall on the reads
+bytes, the step programs: on the card a map whose dispatch after a key's
+first replays no CUDA graph fails, the grid's included). fem_baseline's reads/s are net of its load: its wall on the reads
 less its wall on an empty read file. One line a stage, the card's name and
 power limit on each; the last line is a JSON object of all stages. The run
 stops at the first stage that differs, and exits 1.
@@ -65,6 +66,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
 import numpy as np  # noqa: E402
+
+from fem_tpu_torch.pipeline import cli  # noqa: E402  (no torch: cli imports it in map)
 
 # tools/grch38_scale.py's genome: GRCh38's chromosome lengths (Mb), the
 # seed, and its repeat content (segment lengths, divergence, share).
@@ -379,6 +382,7 @@ def stage_map(a, run: Runner, name: str, paths: dict, base: dict, golden: tuple,
           "steady_reads_per_s": eng["steady_reads_per_s"], "stream_seconds": eng["stream_s"],
           "load_seconds": eng["load_s"], "kernel_launches": eng["kernel_launches"],
           "launches_by_shape": eng["launches_by_shape"], "cells": eng["cells"],
+          "programs": eng["programs"],
           "baseline_reads_per_s": {t: v["reads_per_s"] for t, v in base["by_threads"].items()}}
     launched = kernels_launched(eng["kernel_launches"]) if a.device != "cpu" else True
     st["kernels_launched"] = launched
@@ -391,6 +395,9 @@ def stage_map(a, run: Runner, name: str, paths: dict, base: dict, golden: tuple,
                 for n, g, w in zip(COUNTER_NAMES, got, base["counters"]) if g != w]
     if not launched:
         why.append(f"a kernel never launched: {eng['kernel_launches']}")
+    if a.device != "cpu" and cli.eager_dispatches(eng["programs"]):
+        why.append("a dispatch after its key's first replayed no graph: "
+                   + cli.programs_line(eng["programs"]))
     names, oracle = golden
     st["golden_equal"] = records_by_read(file_recs, names) == oracle
     st["golden_baseline_equal"] = records_by_read(base["file_records"], names) == oracle
@@ -441,7 +448,8 @@ def print_stage(st: dict, card: str) -> None:
                 f"fem_baseline {base} reads/s net of its load; launches "
                 f"{st['kernel_launches']}, filter_tail by cap_occ+cap_cand "
                 f"{st['launches_by_shape']['filter_tail']}, banded_myers by slots x lanes "
-                f"{st['launches_by_shape']['banded_myers']}; {cells}")
+                f"{st['launches_by_shape']['banded_myers']}; {cells}; step programs "
+                f"{cli.programs_line(st['programs'])}")
     print(f"{head}; {more}" + (f"; {st['why']}" if "why" in st else ""), flush=True)
 
 

@@ -9,7 +9,10 @@ vpr 2, apr 0.85, the default ladder), each of: a data grid of n, a (1, n)
 and, for even n, a (2, n/2) (data, index) grid, is built twice, once with
 cell k on card k and once with every cell on cuda:0, and mapped through the
 pipelined stream in turns (cards, one card, one card, cards) for steady
-reads/s; every run must give fem_baseline's records and counters. Then n
+reads/s; every run must give fem_baseline's records and counters, and go
+through the grid's step graphs (pipeline/engine.py:GridProgram): a line an
+engine gives its keys and each cell's capture time, graph memory and
+replays, and every dispatch after a key's first must be a replay. Then n
 `python -m fem_tpu_torch map` processes, each on its own card, joined by
 torch.distributed (the [dist] lines must name NCCL): independent, and as
 one grid with --index-shards n and with --index-shards 2; the merged
@@ -71,6 +74,7 @@ def main() -> int:
     from fem_tpu_torch.config import FemArgs
     from fem_tpu_torch.io import fastx
     from fem_tpu_torch.parallel.mesh import make_index_mesh, make_mesh
+    from fem_tpu_torch.pipeline.cli import eager_dispatches, programs_line
     from fem_tpu_torch.pipeline.engine import EngineConfig, MappingEngine
     from fem_tpu_torch.stats import MappingStats
 
@@ -104,6 +108,11 @@ def main() -> int:
                 cs._log_run(f"{tag} on {where}", "pipelined stream", run)
                 rates[where].append(run["reads_per_s"])
             out["grids"][tag] = rates
+            for where, engine in engines.items():
+                progs = [p.describe() for _, p in sorted(engine.programs.items())]
+                cs.log(f"[probe] {tag} on {where}: step programs {programs_line(progs)}")
+                cs.check(eager_dispatches(progs) == 0,
+                         f"{tag} on {where}: a dispatch after its key's first replayed no graph")
             del engines
             torch.cuda.empty_cache()
         base = ["map", "-e", str(cs.E), "-a", str(cs.A), "--ref", paths["fa"], "--index",
