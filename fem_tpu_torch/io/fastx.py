@@ -23,6 +23,7 @@ from typing import Iterator, List
 import numpy as np
 
 from fem_tpu_torch.core.encoding import CHAR_TO_CODE, encode
+from fem_tpu_torch.utils.metrics import span
 
 
 @dataclasses.dataclass
@@ -293,7 +294,23 @@ def stream_fastq_batches(
     producing the device upload buffer directly); FASTA and exotic records
     (reads > 508 bp, very long names) go to the Python parser, resuming
     exactly where the native stream stopped. A native library that does
-    not build raises; `use_native=False` asks for the Python parser."""
+    not build raises; `use_native=False` asks for the Python parser. Each
+    batch's parse is a `fem::parse` span on the thread that reads."""
+    batches = _fastq_batches(path, batch_size, pad_to_multiple, use_native)
+    try:
+        while True:
+            with span("fem::parse") as sp:
+                batch = next(batches, None)
+                sp.tag(reads=batch and batch.num_reads)
+            if batch is None:
+                return
+            yield batch
+    finally:
+        batches.close()
+
+
+def _fastq_batches(path: str, batch_size: int, pad_to_multiple: int,
+                   use_native: bool | None) -> Iterator[ReadBatch]:
     import os
 
     yielded = 0

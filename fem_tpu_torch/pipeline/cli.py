@@ -34,6 +34,7 @@ Not ported: --cap-vote (the XLA slab path) and --no-warm-shadow
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import resource
 import sys
@@ -130,7 +131,6 @@ def _map_parent_workers(args, argv: list[str]) -> int:
     The workers get this process's arguments, `--device` included; a
     worker that fails makes this process print its stderr and exit with
     its code."""
-    import json
     import subprocess
     import tempfile
 
@@ -229,7 +229,8 @@ def map_main(argv: list[str]) -> int:
                    help="torch device of the device engine (default cuda; "
                         "cpu runs the kernels' plain versions)")
     p.add_argument("--profile", default=None,
-                   help="write a torch.profiler trace to this directory")
+                   help="write a torch.profiler trace (trace.json) and the program's "
+                        "spans on its clock (spans.json) to this directory")
     p.add_argument("--stats-json", default=None,
                    help="write pipeline metrics + counters as JSON")
     p.add_argument("--engine-json", default=None,
@@ -326,7 +327,7 @@ def _map_in_process(args, ctx, entries, multihost) -> int:
     from fem_tpu_torch.index.storage import load_index
     from fem_tpu_torch.io.fastx import read_fasta, stream_fastq_batches
     from fem_tpu_torch.io.sam import SamWriter
-    from fem_tpu_torch.utils.metrics import PipelineMetrics, Timer
+    from fem_tpu_torch.utils.metrics import PipelineMetrics, Timer, take_spans, tracing
 
     load_t0 = time.time()
     reference = read_fasta(args.ref)
@@ -436,6 +437,7 @@ def _map_in_process(args, ctx, entries, multihost) -> int:
             acts.append(ProfilerActivity.CUDA)
         prof = profile(activities=acts)
         prof.start()
+        tracing(True)  # the program's spans, on the trace's clock
     engine = None
     try:
         if args.engine == "golden":
@@ -445,7 +447,7 @@ def _map_in_process(args, ctx, entries, multihost) -> int:
                 recs, stats = mapper.map_reads(batch.names, batch.seqs, batch.quals)
                 write_chunks(recs)
                 total += stats
-                metrics.batch(batch.num_reads, len(recs), 0.0, bt.elapsed())
+                metrics.batch(batch.num_reads, len(recs))
                 if args.verbose_batches:
                     print(f"Mapped read batch in {bt.elapsed():f}s.", file=sys.stderr)
         else:
@@ -495,7 +497,7 @@ def _map_in_process(args, ctx, entries, multihost) -> int:
                 total += stats
                 items.append((time.time(), total.num_reads))
                 dt = bt.reset()
-                metrics.batch(stats.num_reads, len(recs), 0.0, dt)
+                metrics.batch(stats.num_reads, len(recs))
                 if args.verbose_batches:
                     print(f"Mapped read batch in {dt:f}s.", file=sys.stderr)
                 if ckpt_path:
@@ -509,10 +511,14 @@ def _map_in_process(args, ctx, entries, multihost) -> int:
                     _write_checkpoint(ckpt_path, ckpt_hist)
     finally:
         if prof is not None:
+            tracing(False)
             prof.stop()
             os.makedirs(args.profile, exist_ok=True)
             prof.export_chrome_trace(
                 multihost.shard_path(os.path.join(args.profile, "trace.json"), ctx))
+            with open(multihost.shard_path(os.path.join(args.profile, "spans.json"), ctx),
+                      "w") as f:
+                json.dump(take_spans(), f)
         if writer is not None:
             writer.close()
         else:
@@ -546,8 +552,6 @@ def _dump_engine_json(path: str, engine, load_s: dict, items: list, t_stream: fl
     warm-up is not), the kernels' launches by shape (filter_tail by
     "cap_occ+cap_cand", banded_myers by "slots x lanes"), and the engine's
     report (MappingEngine.report)."""
-    import json
-
     from fem_tpu_torch import kernels
 
     reads = items[-1][1] if items else 0

@@ -63,6 +63,7 @@ from fem_tpu_torch.ops.hashing import ambiguous_base_counts, reverse_complement,
 from fem_tpu_torch.ops.types import DeviceIndex, FilterParams, device_index_from_host
 from fem_tpu_torch.ops.verify import verify_candidates
 from fem_tpu_torch.stats import MappingStats
+from fem_tpu_torch.utils.metrics import span
 
 # map_core's stages in order, as named to a StageTimer.
 STAGES = ("hash", "candidates", "verify_slab", "verify", "accept")
@@ -439,36 +440,37 @@ class StepProgram:
         """Dispatch one packed batch (`pack_input`'s, in pinned memory on a
         card) without waiting for it: (the result on the host, the events
         a drain waits on, the StageTimer events)."""
-        with self.lock:
-            self.dispatches += 1
-        if self.stream is None:  # the CPU
-            return self.body(packed), [], None
-        events = None
-        with self.lock, torch.cuda.stream(self.stream):
-            if eager or self.graph is None:
-                inp = packed.to(self.device, non_blocking=True)
-                if timer is not None:
-                    events = timer.begin()
-                out = self.body(inp, (lambda st: timer.mark(events, st))
-                                if timer is not None else None)
-            else:
-                self.static_in.copy_(packed, non_blocking=True)
-                self.graph.replay()
-                self.replays += 1
-                kernels.add_launches(self.launches)
-                out = self.static_out
-            host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-            host.copy_(out, non_blocking=True)
-            ready = torch.cuda.Event()
-            ready.record(self.stream)
-            if self.graph is None and not eager:
-                self._capture(inp)
-        return host, [ready], events
+        with span("fem::step.dispatch"):
+            with self.lock:
+                self.dispatches += 1
+            if self.stream is None:  # the CPU
+                return self.body(packed), [], None
+            events = None
+            with self.lock, torch.cuda.stream(self.stream):
+                if eager or self.graph is None:
+                    inp = packed.to(self.device, non_blocking=True)
+                    if timer is not None:
+                        events = timer.begin()
+                    out = self.body(inp, (lambda st: timer.mark(events, st))
+                                    if timer is not None else None)
+                else:
+                    self.static_in.copy_(packed, non_blocking=True)
+                    self.graph.replay()
+                    self.replays += 1
+                    kernels.add_launches(self.launches)
+                    out = self.static_out
+                host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+                host.copy_(out, non_blocking=True)
+                ready = torch.cuda.Event()
+                ready.record(self.stream)
+                if self.graph is None and not eager:
+                    self._capture(inp)
+            return host, [ready], events
 
     def _capture(self, static_in: torch.Tensor) -> None:
         """Capture the body over `static_in` (the warm-up's input, which
         the graph keeps)."""
-        with self._capture_lock:
+        with span("fem::step.capture"), self._capture_lock:
             t0 = time.perf_counter()
             side = torch.cuda.Stream(self.device)
             graph = torch.cuda.CUDAGraph()
@@ -560,43 +562,45 @@ class GridProgram:
         pinned memory on a card), without waiting for it: (every cell's
         packed result in one host buffer, in `mesh.local_cells()` order,
         the events a drain waits on)."""
-        if not self.streams:  # the CPU
+        with span("fem::step.dispatch"):
+            if not self.streams:  # the CPU
+                with self.lock:
+                    self.dispatches += 1
+                outs = self.step.run(self.indexes,
+                                     {(d, dev): rows[d] for d, dev in self.rows}, {})
+                return torch.cat([pack_result(out) for out in outs]), []
+            devs = [c.device for c in self.cells]
             with self.lock:
                 self.dispatches += 1
-            outs = self.step.run(self.indexes, {(d, dev): rows[d] for d, dev in self.rows}, {})
-            return torch.cat([pack_result(out) for out in outs]), []
-        devs = [c.device for c in self.cells]
-        with self.lock:
-            self.dispatches += 1
-            if eager or not self.captured:
-                on_dev = {}
-                for d, dev in self.rows:
+                if eager or not self.captured:
+                    on_dev = {}
+                    for d, dev in self.rows:
+                        with torch.cuda.stream(self.streams[dev]):
+                            on_dev[d, dev] = rows[d].to(dev, non_blocking=True)
+                    with kernels.recording_launches() as warm:
+                        outs = self.step.run(self.indexes, on_dev, self.streams)
+                    kernels.add_launches(warm)
+                    for k, dev in enumerate(devs):
+                        with torch.cuda.stream(self.streams[dev]):
+                            outs[k] = pack_result(outs[k])
+                else:
+                    for d, dev in self.rows:
+                        with torch.cuda.stream(self.streams[dev]):
+                            self._static_rows[d, dev].copy_(rows[d], non_blocking=True)
+                    self._replay(devs)
+                    outs = self._outs
+                w = outs[0].numel()
+                host = torch.empty(len(outs) * w, dtype=torch.int64, pin_memory=True)
+                for k, (seg, dev) in enumerate(zip(outs, devs)):
                     with torch.cuda.stream(self.streams[dev]):
-                        on_dev[d, dev] = rows[d].to(dev, non_blocking=True)
-                with kernels.recording_launches() as warm:
-                    outs = self.step.run(self.indexes, on_dev, self.streams)
-                kernels.add_launches(warm)
-                for k, dev in enumerate(devs):
-                    with torch.cuda.stream(self.streams[dev]):
-                        outs[k] = pack_result(outs[k])
-            else:
-                for d, dev in self.rows:
-                    with torch.cuda.stream(self.streams[dev]):
-                        self._static_rows[d, dev].copy_(rows[d], non_blocking=True)
-                self._replay(devs)
-                outs = self._outs
-            w = outs[0].numel()
-            host = torch.empty(len(outs) * w, dtype=torch.int64, pin_memory=True)
-            for k, (seg, dev) in enumerate(zip(outs, devs)):
-                with torch.cuda.stream(self.streams[dev]):
-                    host[k * w : (k + 1) * w].copy_(seg, non_blocking=True)
-            ready = []
-            for stream in self.streams.values():
-                ready.append(torch.cuda.Event())
-                ready[-1].record(stream)
-            if not (eager or self.captured):
-                self._capture(on_dev, warm)
-        return host, ready
+                        host[k * w : (k + 1) * w].copy_(seg, non_blocking=True)
+                ready = []
+                for stream in self.streams.values():
+                    ready.append(torch.cuda.Event())
+                    ready[-1].record(stream)
+                if not (eager or self.captured):
+                    self._capture(on_dev, warm)
+            return host, ready
 
     def _replay(self, devs: list) -> None:
         from fem_tpu_torch.parallel.mesh import streams_of
@@ -622,7 +626,7 @@ class GridProgram:
         from fem_tpu_torch.parallel.mesh import static_like
 
         step = self.step
-        with self._capture_lock:
+        with span("fem::step.capture"), self._capture_lock:
             sides = {dev: torch.cuda.Stream(dev) for dev in self.streams}
             gens = [step.cell_steps(d, self.indexes[d, i], static_rows[d, dev])
                     for d, i, dev in step.cells]
@@ -690,6 +694,7 @@ class Pending(NamedTuple):
     seq: int | None  # stream position of a tier-0 batch
     origins: list | None  # a pooled retry batch: its reads' origin seqs
     events: list | None  # StageTimer events of this batch
+    trace: tuple | None  # while tracing: (its fem::submit span's id, its batch id)
 
 
 class MappingEngine:
@@ -919,7 +924,9 @@ class MappingEngine:
         packed = batch.packed
         if (packed is None or tuple(packed.shape) != (tc.batch_size, batch.codes.shape[1] + 4)
                 or (pin and not packed.is_pinned())):
-            packed = pack_input(batch.codes[: batch.num_reads], batch.lengths, tc.batch_size, pin)
+            with span("fem::pack"):
+                packed = pack_input(batch.codes[: batch.num_reads], batch.lengths,
+                                    tc.batch_size, pin)
         return packed
 
     def submit_batch(self, batch: ReadBatch, tier: int = 0, origins: list | None = None):
@@ -936,20 +943,22 @@ class MappingEngine:
         if n > tc.batch_size:
             raise ValueError(
                 f"batch of {n} reads exceeds batch_size {tc.batch_size} of tier {tier}")
-        if tier > 0:
-            with self._fallback_lock:
-                self.tier_dispatches += 1
-                self.dispatches_by_tier[tier] += 1
-        Lmax = batch.codes.shape[1]
-        if self.grid is not None:
-            flat, ready = self._submit_grid(batch, tier, tc)
-            return self._register_pending(batch, flat, ready, tier, origins, None)
         timer = self.stage_timer
-        if timer is not None and self._stream is not None and not self.eager_step:
+        if (self.grid is None and timer is not None and self._stream is not None
+                and not self.eager_step):
             raise ValueError("a StageTimer times the eager step: set engine.eager_step")
-        flat, ready, events = self._program(tier, Lmax).run(
-            self._packed(batch, tc), self.eager_step, timer)
-        return self._register_pending(batch, flat, ready, tier, origins, events)
+        with span("fem::submit", tier=tier, reads=n) as sp:
+            if tier > 0:
+                with self._fallback_lock:
+                    self.tier_dispatches += 1
+                    self.dispatches_by_tier[tier] += 1
+            if self.grid is not None:
+                flat, ready = self._submit_grid(batch, tier, tc)
+                events = None
+            else:
+                flat, ready, events = self._program(tier, batch.codes.shape[1]).run(
+                    self._packed(batch, tc), self.eager_step, timer)
+            return self._register_pending(batch, flat, ready, tier, origins, events, sp)
 
     def _submit_grid(self, batch: ReadBatch, tier: int, tc: TierConfig):
         """One step over the grid's cells in this process, through the
@@ -989,14 +998,18 @@ class MappingEngine:
 
         return make_sharded_map_fn(self.grid, params, verify_cap, accept_cap)
 
-    def _register_pending(self, batch, flat, ready, tier, origins, events) -> Pending:
+    def _register_pending(self, batch, flat, ready, tier, origins, events, sp) -> Pending:
         seq = None
         if tier == 0:
             with self._pool_lock:
                 seq = self._seq
                 self._seq += 1
                 self._batch_state[seq] = [batch.num_reads, 0, False]
-        return Pending(batch, flat, ready, tier, seq, origins, events)
+        trace = None
+        if sp.id is not None:  # a retry batch's id: its submit span's, negated
+            trace = (sp.id, seq if tier == 0 else -sp.id)
+            sp.tag(batch=trace[1])
+        return Pending(batch, flat, ready, tier, seq, origins, events, trace)
 
     def _map_read_fallback(self, name, seq, qual) -> Tuple[List[bytes], MappingStats]:
         """Exact host mapping of one read by the in-process C++ mapper."""
@@ -1037,69 +1050,77 @@ class MappingEngine:
         mode, mapped synchronously otherwise, with their records spliced
         back in read order. With `per_read`, returns one record list per
         read."""
-        batch, flat, ready, tier, seq, origins, events = pending
-        for ev in ready:
-            ev.synchronize()
-        if events is not None:
-            self.stage_timer.collect(events, tier)
-        n = batch.num_reads
-        n_dp, n_ip = self._mesh_shape()
-        Bloc = self._segment_reads(tier)
-        acc_cap = self._cell_caps(self._tier(tier))[1]
-        host = unpack_result(flat.numpy(), acc_cap, Bloc, n_dp * n_ip)
-        # Segments are data-row-major; a row's index shards carry identical
-        # per-read values (reduced in the step): keep index shard 0's.
-        first = slice(0, n_dp * n_ip, n_ip)
-        fb = host["fb"].reshape(n_dp, n_ip, Bloc)[:, 0].reshape(-1)
-        inh = host["inherent"].reshape(n_dp, n_ip, Bloc)[:, 0].reshape(-1)
-        fb_idx = np.flatnonzero(fb[:n])
-        inh_idx = fb_idx[inh[fb_idx]]  # no capacity tier can fix these
-        cap_idx = fb_idx[~inh[fb_idx]]
-        # Stream mode, tier 0: capacity reads wait in the retry pool and
-        # come out as items of their own; otherwise their records are
-        # spliced in here, like the inherent reads' always are.
-        pooled = tier == 0 and self._retry_pool is not None and bool(self.tiers)
-        splice = inh_idx.size > 0 or (cap_idx.size > 0 and not pooled)
+        batch, flat, ready, tier, seq, origins, events, trace = pending
+        cause, bid = trace or (None, None)
+        with span("fem::drain", cause=cause, batch=bid, tier=tier, reads=batch.num_reads):
+            with span("fem::drain.wait"):
+                for ev in ready:
+                    ev.synchronize()
+                if events is not None:
+                    self.stage_timer.collect(events, tier)
+            n = batch.num_reads
+            n_dp, n_ip = self._mesh_shape()
+            Bloc = self._segment_reads(tier)
+            acc_cap = self._cell_caps(self._tier(tier))[1]
+            with span("fem::drain.unpack"):
+                host = unpack_result(flat.numpy(), acc_cap, Bloc, n_dp * n_ip)
+                hits = accepted_hits(host, acc_cap)
+            # Segments are data-row-major; a row's index shards carry identical
+            # per-read values (reduced in the step): keep index shard 0's.
+            first = slice(0, n_dp * n_ip, n_ip)
+            fb = host["fb"].reshape(n_dp, n_ip, Bloc)[:, 0].reshape(-1)
+            inh = host["inherent"].reshape(n_dp, n_ip, Bloc)[:, 0].reshape(-1)
+            fb_idx = np.flatnonzero(fb[:n])
+            inh_idx = fb_idx[inh[fb_idx]]  # no capacity tier can fix these
+            cap_idx = fb_idx[~inh[fb_idx]]
+            # Stream mode, tier 0: capacity reads wait in the retry pool and
+            # come out as items of their own; otherwise their records are
+            # spliced in here, like the inherent reads' always are.
+            pooled = tier == 0 and self._retry_pool is not None and bool(self.tiers)
+            splice = inh_idx.size > 0 or (cap_idx.size > 0 and not pooled)
 
-        blob, ends, stats = self._emit_native(
-            batch, accepted_hits(host, acc_cap), n_dp * Bloc, fb,
-            int(host["sum_nc"][first].sum()), int(host["sum_dp"][first].sum()),
-            per_read or splice)
-        # A read is counted by whichever drain finally emits it.
-        stats.num_reads = n - int(fb_idx.size)
+            with span("fem::emit", reads=n - int(fb_idx.size)):
+                blob, ends, stats = self._emit_native(
+                    batch, hits, n_dp * Bloc, fb, int(host["sum_nc"][first].sum()),
+                    int(host["sum_dp"][first].sum()), per_read or splice)
+            # A read is counted by whichever drain finally emits it.
+            stats.num_reads = n - int(fb_idx.size)
 
-        replaced: Dict[int, list] = {}  # read -> its records from elsewhere
-        for i in inh_idx:
-            replaced[int(i)], s = self._map_read_fallback(
-                batch.names[i], batch.seqs[i], batch.quals[i]
-            )
-            stats += s
-        reads = [(batch.names[i], batch.seqs[i], batch.quals[i]) for i in cap_idx]
-        if pooled:
-            with self._pool_lock:
-                self._batch_state[seq][1] = len(reads)
-                self._retry_pool.extend((seq, *r) for r in reads)
-        elif reads:
-            fb_segs, fb_stats = self._map_reads_at_tier(reads, tier + 1)
-            replaced.update(zip((int(i) for i in cap_idx), fb_segs))
-            stats += fb_stats
+            replaced: Dict[int, list] = {}  # read -> its records from elsewhere
+            if inh_idx.size:
+                with span("fem::host_map", reads=int(inh_idx.size)):
+                    for i in inh_idx:
+                        replaced[int(i)], s = self._map_read_fallback(
+                            batch.names[i], batch.seqs[i], batch.quals[i]
+                        )
+                        stats += s
+            reads = [(batch.names[i], batch.seqs[i], batch.quals[i]) for i in cap_idx]
+            if pooled:
+                with self._pool_lock:
+                    self._batch_state[seq][1] = len(reads)
+                    self._retry_pool.extend((seq, *r) for r in reads)
+            elif reads:
+                fb_segs, fb_stats = self._map_reads_at_tier(reads, tier + 1)
+                replaced.update(zip((int(i) for i in cap_idx), fb_segs))
+                stats += fb_stats
 
-        def mark():
-            with self._pool_lock:
-                for s0 in origins or ():
-                    st = self._batch_state.get(s0)
-                    if st is not None:
-                        st[1] -= 1
-                if seq is not None:
-                    self._batch_state[seq][2] = True
-            self._advance_watermark()
+            def mark():
+                with self._pool_lock:
+                    for s0 in origins or ():
+                        st = self._batch_state.get(s0)
+                        if st is not None:
+                            st[1] -= 1
+                    if seq is not None:
+                        self._batch_state[seq][2] = True
+                self._advance_watermark()
 
-        if acks is None:
-            mark()
-        else:
-            acks.append(mark)
+            if acks is None:
+                mark()
+            else:
+                acks.append(mark)
 
-        return _splice(blob, ends, replaced, per_read), stats
+            with span("fem::splice"):
+                return _splice(blob, ends, replaced, per_read), stats
 
     def _drain_cross_host(self, pending: Pending, acks: list | None = None):
         """Drain on a grid that spans processes (fem_tpu/pipeline/engine.py
@@ -1114,82 +1135,86 @@ class MappingEngine:
         reads past the last tier round-robin over the processes."""
         from fem_tpu_torch.parallel.multihost import allgather_bitmaps, gather_rows
 
-        batch, flat, ready, tier, seq, origins, events = pending
-        for ev in ready:
-            ev.synchronize()
-        mesh = self.grid
-        n = batch.num_reads
-        n_dp, n_ip = self._mesh_shape()
-        Bloc = self._segment_reads(tier)
-        acc_cap = self._cell_caps(self._tier(tier))[1]
-        rows = gather_rows(mesh, flat.reshape(len(mesh.local_cells()), -1))
-        me = mesh.rank
-        fb_own = np.zeros(n_dp * Bloc, bool)
-        inh_own = np.zeros(n_dp * Bloc, bool)
-        owned = {}
-        for d in sorted(rows):
-            if mesh.row_owner(d) != me:
-                continue
-            owned[d] = host = unpack_result(rows[d].reshape(-1), acc_cap, Bloc, n_ip)
-            fb_own[d * Bloc : (d + 1) * Bloc] = host["fb"][:Bloc]
-            inh_own[d * Bloc : (d + 1) * Bloc] = host["inherent"][:Bloc]
-        fb_all, inh_all = allgather_bitmaps(fb_own, inh_own)
+        batch, flat, ready, tier, seq, origins, events, trace = pending
+        cause, bid = trace or (None, None)
+        with span("fem::drain", cause=cause, batch=bid, tier=tier, reads=batch.num_reads):
+            for ev in ready:
+                ev.synchronize()
+            mesh = self.grid
+            n = batch.num_reads
+            n_dp, n_ip = self._mesh_shape()
+            Bloc = self._segment_reads(tier)
+            acc_cap = self._cell_caps(self._tier(tier))[1]
+            rows = gather_rows(mesh, flat.reshape(len(mesh.local_cells()), -1))
+            me = mesh.rank
+            fb_own = np.zeros(n_dp * Bloc, bool)
+            inh_own = np.zeros(n_dp * Bloc, bool)
+            owned = {}
+            for d in sorted(rows):
+                if mesh.row_owner(d) != me:
+                    continue
+                owned[d] = host = unpack_result(rows[d].reshape(-1), acc_cap, Bloc, n_ip)
+                fb_own[d * Bloc : (d + 1) * Bloc] = host["fb"][:Bloc]
+                inh_own[d * Bloc : (d + 1) * Bloc] = host["inherent"][:Bloc]
+            fb_all, inh_all = allgather_bitmaps(fb_own, inh_own)
 
-        records: List[bytes] = []
-        stats = MappingStats()
-        for d, host in owned.items():
-            lo = d * Bloc
-            n_row = min(max(n - lo, 0), Bloc)
-            if n_row == 0:
-                continue
-            rb = ReadBatch(batch.names[lo : lo + n_row], batch.seqs[lo : lo + n_row],
-                           batch.quals[lo : lo + n_row], batch.codes[lo : lo + n_row],
-                           batch.lengths[lo : lo + n_row])
-            fb, inh = host["fb"][:Bloc], host["inherent"][:Bloc]
-            fb_idx = np.flatnonzero(fb[:n_row])
-            inh_idx = fb_idx[inh[fb_idx]]
-            blob, ends, st = self._emit_native(
-                rb, accepted_hits(host, acc_cap), Bloc, fb, int(host["sum_nc"][0]),
-                int(host["sum_dp"][0]), inh_idx.size > 0)
-            st.num_reads = n_row - int(fb_idx.size)
-            replaced = {}
-            for i in inh_idx:  # the row owner host-maps its inherent reads
-                replaced[int(i)], s = self._map_read_fallback(rb.names[i], rb.seqs[i], rb.quals[i])
-                st += s
-            records.extend(_splice(blob, ends, replaced, False))
-            stats += st
+            records: List[bytes] = []
+            stats = MappingStats()
+            for d, host in owned.items():
+                lo = d * Bloc
+                n_row = min(max(n - lo, 0), Bloc)
+                if n_row == 0:
+                    continue
+                rb = ReadBatch(batch.names[lo : lo + n_row], batch.seqs[lo : lo + n_row],
+                               batch.quals[lo : lo + n_row], batch.codes[lo : lo + n_row],
+                               batch.lengths[lo : lo + n_row])
+                fb, inh = host["fb"][:Bloc], host["inherent"][:Bloc]
+                fb_idx = np.flatnonzero(fb[:n_row])
+                inh_idx = fb_idx[inh[fb_idx]]
+                with span("fem::emit", reads=n_row - int(fb_idx.size)):
+                    blob, ends, st = self._emit_native(
+                        rb, accepted_hits(host, acc_cap), Bloc, fb, int(host["sum_nc"][0]),
+                        int(host["sum_dp"][0]), inh_idx.size > 0)
+                st.num_reads = n_row - int(fb_idx.size)
+                replaced = {}
+                for i in inh_idx:  # the row owner host-maps its inherent reads
+                    replaced[int(i)], s = self._map_read_fallback(
+                        rb.names[i], rb.seqs[i], rb.quals[i])
+                    st += s
+                records.extend(_splice(blob, ends, replaced, False))
+                stats += st
 
-        # Capacity retry, collectively: the same list on every process.
-        cap_idx = np.flatnonzero(fb_all[:n] & ~inh_all[:n])
-        reads = [(batch.names[i], batch.seqs[i], batch.quals[i]) for i in cap_idx]
-        if reads and tier < len(self.tiers):
-            with self._fallback_lock:
-                self.retried_reads += len(reads)
-            B_t = self._tier(tier + 1).batch_size
-            for lo in range(0, len(reads), B_t):
-                r2, s2 = self._drain_cross_host(
-                    self.submit_batch(self._subbatch(reads[lo : lo + B_t]), tier + 1))
-                records.extend(r2)
-                stats += s2
-        elif reads:
-            nproc = dist.get_world_size()
-            for j, (nm, sq, ql) in enumerate(reads):
-                if j % nproc == me:
-                    r, s = self._map_read_fallback(nm, sq, ql)
-                    records.extend(r)
-                    stats += s
+            # Capacity retry, collectively: the same list on every process.
+            cap_idx = np.flatnonzero(fb_all[:n] & ~inh_all[:n])
+            reads = [(batch.names[i], batch.seqs[i], batch.quals[i]) for i in cap_idx]
+            if reads and tier < len(self.tiers):
+                with self._fallback_lock:
+                    self.retried_reads += len(reads)
+                B_t = self._tier(tier + 1).batch_size
+                for lo in range(0, len(reads), B_t):
+                    r2, s2 = self._drain_cross_host(
+                        self.submit_batch(self._subbatch(reads[lo : lo + B_t]), tier + 1))
+                    records.extend(r2)
+                    stats += s2
+            elif reads:
+                nproc = dist.get_world_size()
+                for j, (nm, sq, ql) in enumerate(reads):
+                    if j % nproc == me:
+                        r, s = self._map_read_fallback(nm, sq, ql)
+                        records.extend(r)
+                        stats += s
 
-        def mark():
-            if seq is not None:
-                with self._pool_lock:
-                    self._batch_state[seq][2] = True
-            self._advance_watermark()
+            def mark():
+                if seq is not None:
+                    with self._pool_lock:
+                        self._batch_state[seq][2] = True
+                self._advance_watermark()
 
-        if acks is None:
-            mark()
-        else:
-            acks.append(mark)
-        return records, stats
+            if acks is None:
+                mark()
+            else:
+                acks.append(mark)
+            return records, stats
 
     def _advance_watermark(self) -> None:
         with self._pool_lock:
@@ -1226,19 +1251,21 @@ class MappingEngine:
         stats = MappingStats()
         per = []
         if tier > len(self.tiers):
-            for nm, sq, ql in reads:
-                r, s = self._map_read_fallback(nm, sq, ql)
-                per.append(r)
-                stats += s
+            with span("fem::host_map", reads=len(reads)):
+                for nm, sq, ql in reads:
+                    r, s = self._map_read_fallback(nm, sq, ql)
+                    per.append(r)
+                    stats += s
             return per, stats
         with self._fallback_lock:
             self.retried_reads += len(reads)
         B_t = self._tier(tier).batch_size
-        for lo in range(0, len(reads), B_t):
-            sub = self._subbatch(reads[lo : lo + B_t])
-            segs, s = self._drain(self.submit_batch(sub, tier), per_read=True)
-            per.extend(segs)
-            stats += s
+        with span("fem::retry.sync", tier=tier, reads=len(reads)):
+            for lo in range(0, len(reads), B_t):
+                sub = self._subbatch(reads[lo : lo + B_t])
+                segs, s = self._drain(self.submit_batch(sub, tier), per_read=True)
+                per.extend(segs)
+                stats += s
         return per, stats
 
     def _emit_native(self, batch: ReadBatch, hits: tuple, B: int, fb: np.ndarray,
@@ -1344,29 +1371,40 @@ class MappingEngine:
                                 return
                             take = pool[:retry_B]
                             del pool[:retry_B]
-                        rb = self._subbatch([r[1:] for r in take])
-                        with self._fallback_lock:
-                            self.retried_reads += rb.num_reads
-                        pending = self.submit_batch(
-                            rb, tier=1, origins=[r[0] for r in take])
-                        q.append(ex.submit(self._drain_stream, pending))
+                        with span("fem::retry.flush", tier=1, reads=len(take)) as sp:
+                            rb = self._subbatch([r[1:] for r in take])
+                            with self._fallback_lock:
+                                self.retried_reads += rb.num_reads
+                            pending = self.submit_batch(
+                                rb, tier=1, origins=[r[0] for r in take])
+                            sp.tag(batch=pending.trace and pending.trace[1])
+                            q.append(ex.submit(self._drain_stream, pending))
 
                 def drain_later(pending):
                     if self._cross:
                         return _Later(self._drain_stream, pending)
                     return ex.submit(self._drain_stream, pending)
 
-                for batch in batches:
+                def oldest():
+                    with span("fem::stream.wait"):
+                        return q.popleft().result()
+
+                feed = iter(batches)
+                while True:
+                    with span("fem::feed.wait"):
+                        batch = next(feed, None)
+                    if batch is None:
+                        break
                     if not batch.num_reads:
                         continue
                     q.append(drain_later(self.submit_batch(batch)))
                     if retry_B:
                         flush_retries(retry_B)
                     while len(q) > depth:
-                        yield from consume(q.popleft().result())
+                        yield from consume(oldest())
                 while q or pool:
                     while q:
-                        yield from consume(q.popleft().result())
+                        yield from consume(oldest())
                     if retry_B:
                         flush_retries(1)
         finally:

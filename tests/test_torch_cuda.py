@@ -410,3 +410,37 @@ def test_grid_program_on_cuda_replays(cuda, small_reference, small_index, defaul
         short.names, short.seqs, short.quals)
     assert b"".join(want[1][0]) == b"".join(grecs)
     assert dataclasses.asdict(want[1][1]) == dataclasses.asdict(gstats)
+
+
+def test_span_encloses_its_kernel_on_the_profiler_clock(cuda):
+    """The program's spans and torch.profiler's device events share one
+    clock: a span around a synchronized filter-tail launch encloses that
+    kernel's interval in the same trace. Prints the kernel's start after
+    the span's start and the span's end after the kernel's end, in us."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from fem_tpu_torch.utils import metrics
+
+    sid, diag = (x.to(cuda) for x in _slabs(np.random.default_rng(7), 32768, 3, 80))
+    filter_tail(sid, diag, 16, 5, 1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        metrics.tracing(True)
+        try:
+            for k in range(5):
+                with metrics.span("fem::probe", batch=k):
+                    filter_tail(sid, diag, 16, 5, 1)
+                    torch.cuda.synchronize()
+        finally:
+            metrics.tracing(False)
+    spans = sorted((r for r in metrics.take_spans()["records"] if r["name"] == "fem::probe"),
+                   key=lambda r: r["start_ns"])
+    kern = sorted((e.start_ns(), e.start_ns() + e.duration_ns())
+                  for e in prof.profiler.kineto_results.events()
+                  if "cpu" not in str(e.device_type()).lower() and "filter_tail" in e.name())
+    assert len(spans) == len(kern) == 5
+    lead = [(k0 - s["start_ns"]) / 1e3 for s, (k0, _) in zip(spans, kern)]
+    tail = [(s["end_ns"] - k1) / 1e3 for s, (_, k1) in zip(spans, kern)]
+    print(f"[clock] {torch.cuda.get_device_name(0)}: kernel start - span start {lead} us; "
+          f"span end - kernel end {tail} us; kernel {[(b - a) / 1e3 for a, b in kern]} us")
+    assert min(lead) > 0 and min(tail) > 0
