@@ -84,7 +84,11 @@ exits non-zero without its result line:
               wrapper) after the timed and counted runs: equal to the plain
               version, then timed warm and cold like phase 4. On the main
               path the slabs were written just before the kernel runs, so
-              the warm number is the nearer one there.
+              the warm number is the nearer one there. The occurrence
+              slab's rows are made here, on its main-path inputs alone
+              (its seed tables come from the steps before it): the benign
+              tier 0 (cap_occ 80 over 32,768 lanes), the adversarial tier 1
+              (640 over 1,024) and tier 2 (5120 over 128).
   7. cli      the command line on the benign point's files, as a user runs
               it (fem_tpu_torch/pipeline/cli.py): `index 12 3` must write
               phase 3's index bytes; `map` with the benign point's flags
@@ -121,7 +125,7 @@ exits non-zero without its result line:
               (--coordinator on a free local port), once independent and
               once as one (2, 2) grid with --index-shards 2 (gloo: NCCL
               refuses two ranks on one GPU; the [dist] lines must say so).
-              Every run: records and counters == fem_baseline, both kernels
+              Every run: records and counters == fem_baseline, every kernel
               launched. Grids run through their GridPrograms, one per
               (tier, Lmax): every dispatch padded to its tier's batch size
               and split evenly over the data rows, each cell's step a CUDA
@@ -132,7 +136,10 @@ exits non-zero without its result line:
               set_sync_debug_mode("error"); the counted run, whose every
               dispatch after a key's first must be a replay (a line gives
               the keys and each cell's capture time, graph memory and
-              replays) with one launch of each kernel a cell a dispatch; a
+              replays) with one launch of each kernel a cell a dispatch
+              (the occurrence slab two on an index grid: the cell's own
+              bound, then its slab at the bound reduced over the index
+              axis); a
               run under torch.profiler, which must see each kernel as often
               as the wrappers counted; a run with engine.eager_step, which
               must give the same records; for data 2 and (1, 4), steady
@@ -151,7 +158,9 @@ exits non-zero without its result line:
               tail over 32,768 lanes (a (1, n_ip) row) and 16,384 (n_dp =
               2), banded Myers at 16,384 slots over 32,768 lanes, on
               synthetic inputs and replayed on a (1, 4) shard's own (for
-              Myers, a shard whose reference slice has negative offsets).
+              Myers, a shard whose reference slice has negative offsets);
+              the occurrence slab on a (1, 4) cell's own inputs, both of
+              its launches held, the second a row.
   10. configs the parameter sweep of tests/test_config_matrix.py (e=7 a=2,
               e=0, e=5 a=0, k=10 step=5, 148 bp reads, 76 bp at step 2)
               and the soak's e=7 150 bp line (Lmax 160, the widest band),
@@ -171,7 +180,7 @@ exits non-zero without its result line:
               defaults (B=10,000, 256 + 256, 16 verify slots a lane)
               unsharded and on a (1, 4) grid on cuda:0, each equal to
               fem_baseline in records and counters and to the golden
-              oracle on the first 64 reads, both kernels launched, every
+              oracle on the first 64 reads, every kernel launched, every
               dispatch after a key's first a replay of the step graphs (the
               grid's GridPrograms of four cells included); a line a stage
               (seconds, peak host RSS, peak device memory, retries, launches
@@ -180,16 +189,23 @@ exits non-zero without its result line:
               step, the filter tail's call at 256 + 256 over 20,000 lanes
               and Myers' at 320,000 slots; on a (1, 4) grid on cuda:0, a
               cell's filter tail at 256 + 256 and its Myers at 80,000
-              slots against the cell's own reference slice. Each is held
-              against its plain version and timed, a row of its own whose
-              launches are the tool's map's count at that shape (the
-              unsharded map's, or the grid's).
+              slots against the cell's own reference slice; the occurrence
+              slab at 256 over 20,000 lanes, unsharded and a cell's second
+              launch. Each is held against its plain version and timed, a
+              row of its own whose launches are the tool's map's count at
+              that shape (the unsharded map's, or the grid's). The
+              unsharded seed tables also feed the occurrence slab at the
+              ladder's wider cap_occ, 2048 over 1,024 lanes and 16,384
+              over 128 (the lanes over 256 first), in its three modes:
+              exactly equal to the plain version, timed warm.
 
 Each kernel's bound is the least time the card could take for the same
 inputs: the bytes it must move (inputs once, outputs once) over 3.35 TB/s,
 or its unavoidable int32 operations over 64 lanes x SMs x the max SM clock
-nvidia-smi reports, whichever is larger. No single PyTorch call computes
-either function, so library_ms is null.
+nvidia-smi reports, whichever is larger (the occurrence slab's bytes: its
+seed tables and the occurrences its runs cover in, its two int32 slabs,
+flags and bounds out; occ_bound_of). No single PyTorch call computes any
+of these functions, so library_ms is null.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -281,7 +297,26 @@ ROW_LAUNCHES = {
     "banded_myers_scale_shard": ("banded_myers",
                                  lambda s: s == (SCALE_VERIFY_SLOTS // 4, 2 * SCALE_BATCH),
                                  "scale_grid"),
+    # The occurrence slab, keyed (cap_occ, lanes), each row on the inputs its
+    # main path gave it (phase 6, 9 and 11): the benign tier 0, the
+    # adversarial point's tiers 1 and 2, a (1, 4) cell's second launch (the
+    # slab at the bound reduced over the index axis; its launches count both
+    # of the cell's), and phase 11's unsharded map and (1, 4) cell.
+    "occ_slab": ("occ_slab", lambda s: s == (80, 2 * BATCH), "benign"),
+    "occ_slab_tier1": ("occ_slab", lambda s: s == (TIER1[1], 2 * TIER1[0]), "adversarial"),
+    "occ_slab_tier2": ("occ_slab", lambda s: s[0] == TIER2[1] and s[1] <= 2 * TIER2[0],
+                       "adversarial"),
+    "occ_slab_shard": ("occ_slab", lambda s: s == (80, 2 * BATCH), "grid_1x4"),
+    "occ_slab_scale": ("occ_slab", lambda s: s == (SCALE_TAIL[0], 2 * SCALE_BATCH), "scale"),
+    "occ_slab_scale_shard": ("occ_slab", lambda s: s == (SCALE_TAIL[0], 2 * SCALE_BATCH),
+                             "scale_grid"),
 }
+# Where each kernel's launches by shape lie in a run's record.
+SHAPES_KEY = {"filter_tail": "tail_shapes", "banded_myers": "myers_shapes",
+              "occ_slab": "occ_shapes"}
+# The wider cap_occ of the command line's default ladder (cap_occ 256, B
+# 10,000): (tier, reads, cap_occ), held on phase 11's tier-0 seed tables.
+SCALE_WIDER = ((1, 512, 2048), (2, 64, 16384))
 
 
 def log(msg: str) -> None:
@@ -448,7 +483,8 @@ def phase_build() -> None:
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             name = re.search(
-                r"(filter_tail_(?:block_|ws_)?kernelILi\d+|banded_myers_kernel)",
+                r"(filter_tail_(?:block_|ws_)?kernelILi\d+|banded_myers_kernel"
+                r"|occ_slab_kernelILi\d+)",
                 m.group(1))
             name = name.group(1) if name else m.group(1)
         elif "registers" in line or "spill" in line:
@@ -562,6 +598,36 @@ def myers_bound(v_sid, v_pos, v_lane, both, lens, e: int, used) -> tuple[dict, s
     note = (f"slots in use {n_used} of {V}, mean length "
             f"{float(steps.double().mean()) if n_used else 0.0:.1f}, reads used {reads.numel()}")
     return bound(nbytes, int(steps.sum()) * MYERS_OPS_PER_STEP), note
+
+
+def occ_bound_of(off_s, lfreq_s, start_s, lane_ok, cap: int, mode: str) -> tuple[dict, str]:
+    """Bound of one occurrence-slab call at `cap` slots, and a line about it.
+    `mode` is "own" (bound and slab), "bound" (no slab) or "given" (the
+    slab at a bound read in). Bytes: the three int64 seed tables and the
+    lane flags in, the occurrences the runs cover within cap slots (8
+    each) in; out the two int32 slabs unless "bound", the flags and the
+    int64 bound unless "given" (which reads its bound instead).
+    Operations: one compare a slot written, or a slot covered."""
+    NB, G, S = off_s.shape
+    items = NB * G
+    fc = lfreq_s.clamp(max=cap + 1)
+    srow = off_s & 7
+    fc8 = torch.where(fc > 0, ((srow + fc + 7) // 8) * 8, 0)
+    first = torch.cumsum(fc8, dim=2) - fc8 + srow  # each run's first slot
+    covered = ((first + fc).clamp(max=cap) - first).clamp(min=0) * lane_ok[..., None]
+    n_occ = int(covered.sum())
+    nbytes = items * S * 24 + items + n_occ * 8
+    nbytes += 0 if mode == "bound" else items * cap * 8
+    nbytes += items * 8 if mode == "given" else items * 9
+    ops = n_occ if mode == "bound" else items * cap
+    note = (f"{n_occ / items:.2f} occurrences a group read, groups over cap_occ "
+            f"{float((fc8.sum(dim=2) > cap).double().mean()):.2%}")
+    return bound(nbytes, ops), note
+
+
+def occ_parts(res) -> list:
+    """An occurrence-slab result's tensors, the ones its mode writes."""
+    return [x for x in res if x is not None]
 
 
 def compare_and_time(name: str, what: str, kernel, plain, plain_reps: int,
@@ -939,6 +1005,8 @@ class Probe:
         self.reset()
         self._undo = []
         self._wrap(candidates_mod, "filter_tail")
+        self._wrap(candidates_mod, "occ_slab")
+        self._wrap(candidates_mod, "occ_bound")
         self._wrap(engine_mod, "verify_candidates")
         self._time(engine, "_emit_native", lambda a, k, dt: self._emitted(dt))
         self._time(engine, "submit_batch", self._submitted)
@@ -1020,7 +1088,7 @@ def run_engine(engine, probe: Probe, batches, mode: str) -> dict:
             "emit_s": probe.emit_s, "emit_calls": probe.emit_calls,
             "retried": retried, "dispatches": dispatches, "fallback": fallback,
             "launches": launches, "tail_shapes": shapes["filter_tail"],
-            "myers_shapes": shapes["banded_myers"],
+            "myers_shapes": shapes["banded_myers"], "occ_shapes": shapes["occ_slab"],
             "submit_s": {t: list(v) for t, v in probe.submit_s.items()}}
 
 
@@ -1114,13 +1182,14 @@ def phase_main(tag: str, ref, index, paths, config, dev, turns: tuple,
              "captures and the cold start in it)", run)
     log(f"[main] {tag}: kernel launches {run['launches']}; filter_tail launches by "
         f"(cap_occ, cap_cand) {run['tail_shapes']}; banded_myers launches by (slots, "
-        f"lanes) {run['myers_shapes']}; peak device memory {peak / 2**30:.3f} GiB")
+        f"lanes) {run['myers_shapes']}; occ_slab launches by (cap_occ, lanes) "
+        f"{run['occ_shapes']}; peak device memory {peak / 2**30:.3f} GiB")
     run["graphs"] = check_graphs(tag, engine, len(batches) + run["dispatches"])
     _log_submits(tag, "first run through the graphs (captures in it)", run)
     check(all(n > 0 for n in run["launches"].values()),
           f"{tag}: a kernel of the main path never launched")
     check(run["launches"]["filter_tail"] == run["launches"]["banded_myers"]
-          == len(batches) + run["dispatches"],
+          == run["launches"]["occ_slab"] == len(batches) + run["dispatches"],
           f"{tag}: not one launch of each kernel a dispatch")
     baseline_check(tag, paths, run)
 
@@ -1242,7 +1311,8 @@ def _no_ladder_run(tag: str, args, ref, index, paths, config, counted: dict) -> 
     check(run["fallback"] > 0 and run["retried"] == 0 and run["dispatches"] == 0,
           f"{tag}: without a ladder the overflow reads did not reach the host mapper")
     check(run["launches"]["filter_tail"] == run["launches"]["banded_myers"]
-          == NUM_READS // BATCH, f"{tag}: the run without a ladder launched otherwise")
+          == run["launches"]["occ_slab"] == NUM_READS // BATCH,
+          f"{tag}: the run without a ladder launched otherwise")
 
 
 def profiler_counts(tag: str, prof, launches: dict) -> tuple[list, dict]:
@@ -1251,7 +1321,7 @@ def profiler_counts(tag: str, prof, launches: dict) -> tuple[list, dict]:
     often as the wrappers counted (`launches`, replays included)."""
     events = [(ev.key, getattr(ev, "device_time_total", None)
                or getattr(ev, "cuda_time_total", 0), ev.count) for ev in prof.key_averages()]
-    ours = {k: c for k, _, c in events if "filter_tail" in k or "banded_myers" in k}
+    ours = {k: c for k, _, c in events if any(kernel in k for kernel in launches)}
     for kernel, counted in launches.items():
         seen = sum(c for k, c in ours.items() if kernel in k)
         check(seen == counted, f"{tag}: the profiler saw {kernel} {seen} times, the "
@@ -1410,9 +1480,11 @@ def phase_cli(workdir: str, paths: dict) -> dict:
         f"mapping) {_time_line(err)}; stats JSON {stats['reads_per_s']:,.1f} reads/s, "
         f"retried {stats['retried_reads']}, host-mapped {stats['fallback_reads']}; peak "
         f"device memory {peak / 2**30:.3f} GiB; filter_tail launches by (cap_occ, cap_cand) "
-        f"{shapes['filter_tail']}, banded_myers by (slots, lanes) {shapes['banded_myers']}")
+        f"{shapes['filter_tail']}, banded_myers by (slots, lanes) {shapes['banded_myers']}, "
+        f"occ_slab by (cap_occ, lanes) {shapes['occ_slab']}")
     check(shapes["filter_tail"].get((80, 16), 0) > 0
-          and shapes["banded_myers"].get((4 * BATCH, 2 * BATCH), 0) > 0,
+          and shapes["banded_myers"].get((4 * BATCH, 2 * BATCH), 0) > 0
+          and shapes["occ_slab"].get((80, 2 * BATCH), 0) > 0,
           "cli map: a kernel was launched no time at the tier-0 shapes")
     check(stats["mapping_stats"] == dict(zip(COUNTER_KEYS, counters))
           and stats["reads"] == NUM_READS, "cli map: the stats JSON disagrees with stderr")
@@ -1496,7 +1568,7 @@ def phase_bench() -> None:
         check(line["records_equal"] is True
               and line["records_equal_by_workers"] == {"2": True, "1": True},
               f"bench: a worker count is not equal to fem_baseline: {line}")
-        check(both_launched(line["kernel_launches"]),
+        check(all_launched(line["kernel_launches"]),
               f"bench: a kernel was launched no time in its workers: {line}")
     log(f"[bench] {BENCH_ENV}: {time.perf_counter() - t0:.1f} s")
 
@@ -1520,12 +1592,17 @@ def _grid_run(tag: str, engine, batches, paths: dict, capture: dict | None = Non
     _log_run(tag, "pipelined stream through the grid's graphs, counted run (the captures "
              "in it)", run)
     log(f"[parallel] {tag}: kernel launches {run['launches']}; filter_tail by (cap_occ, "
-        f"cap_cand) {run['tail_shapes']}; banded_myers by (slots, lanes) {run['myers_shapes']}")
+        f"cap_cand) {run['tail_shapes']}; banded_myers by (slots, lanes) {run['myers_shapes']}; "
+        f"occ_slab by (cap_occ, lanes) {run['occ_shapes']}")
     check(all(n > 0 for n in run["launches"].values()), f"{tag}: a kernel was never launched")
     dispatches = len(batches) + run["dispatches"]
+    # A cell of an index grid writes its slab in two launches, around the
+    # reduction of its bound over the index axis.
+    slabs = 2 if engine.config.index_mesh is not None else 1
     check(run["launches"]["filter_tail"] == run["launches"]["banded_myers"]
-          == cells * dispatches, f"{tag}: not one launch of each kernel a cell a dispatch "
-          f"({cells} cells, {dispatches} dispatches): {run['launches']}")
+          == run["launches"]["occ_slab"] // slabs == cells * dispatches,
+          f"{tag}: not one launch of each kernel a cell a dispatch ({cells} cells, "
+          f"{dispatches} dispatches, {slabs} occ_slab launches a step): {run['launches']}")
     run["graphs"] = check_graphs(tag, engine, dispatches)
     baseline_check(tag, paths, run)
     _profiled_run(tag, engine, probe, batches, run["digest"], split=False)
@@ -1647,6 +1724,12 @@ def phase_parallel(workdir: str, benign_paths: dict, adv_paths: dict,
         "banded_myers_shard": lambda attr, a: attr == "verify_candidates"
         and a[0].own_start is not None and (a[1].shape[0], a[4].shape[0]) == (BATCH, 2 * BATCH)
         and int(a[0].ref_offsets.min()) < 0,
+        # A cell's two occurrence-slab launches: its own bound, then the
+        # slab at the bound reduced over the index axis.
+        "occ_bound_shard": lambda attr, a: attr == "occ_bound"
+        and (a[5], a[0].shape[0]) == (80, 2 * BATCH),
+        "occ_slab_shard": lambda attr, a: attr == "occ_slab"
+        and (a[5], a[0].shape[0]) == (80, 2 * BATCH),
     }
     for tag, key, grid in (("grid_dp2", "mesh", make_mesh([dev] * 2)),
                            ("grid_1x4", "index_mesh", make_index_mesh([dev] * 4, 4)),
@@ -1703,6 +1786,7 @@ def phase_parallel(workdir: str, benign_paths: dict, adv_paths: dict,
     offs = captured["banded_myers_shard"][0][0].ref_offsets
     log(f"[parallel] replayed Myers shard: reference slice of {offs.shape[0]} chromosome(s), "
         f"offsets {offs.tolist()}")
+    rows += occ_rows("grid_1x4", captured, "[parallel]")
     phase_replay(rows, captured, "shard_inputs")
     del dindex, args_v, captured, ref, index, batches
     torch.cuda.empty_cache()
@@ -1796,9 +1880,26 @@ def _hold_call(name: str, key: str, args: list, kw: dict, row: str | None,
     plain version on the same inputs (exact). With `row`, also timed and
     bounded as a kernel-table row, which is returned."""
     from fem_tpu_torch.ops.filter_tail import filter_tail, filter_tail_plain, plan
+    from fem_tpu_torch.ops.occ_slab import occ_bound, occ_slab, occ_slab_plain
     from fem_tpu_torch.ops.verify import verify_candidates, verify_candidates_plain
 
-    if key.startswith("filter_tail"):
+    if key.startswith("occ_"):  # occ_slab (own or given bound) or occ_bound
+        off_s, lfreq_s, start_s, lane_ok, occ, cap = args
+        tkey = kw.get("tkey")
+        mode = "bound" if key.startswith("occ_bound") else ("own" if tkey is None else "given")
+        if mode == "bound":
+            kernel = lambda: occ_parts(occ_bound(*args))
+            plain = lambda: occ_parts(occ_slab_plain(*args))[2:]
+        else:
+            kernel = lambda: occ_parts(occ_slab(*args, tkey=tkey))
+            plain = lambda: occ_parts(occ_slab_plain(*args, tkey=tkey))
+        bnd, note = occ_bound_of(off_s, lfreq_s, start_s, lane_ok, cap, mode)
+        what = (f"NB={off_s.shape[0]} G={off_s.shape[1]} S={off_s.shape[2]} CAP={cap}, "
+                + {"own": "own bound", "bound": "the bound alone", "given": "given bound"}[mode])
+        base = {"source": "fem_tpu_torch/csrc/occ_slab.cu",
+                "replaces": "no Pallas kernel: XLA ops of fem_tpu/ops/candidates.py"}
+        timing = dict(kernel="occ_slab", plain_reps=3, plain_samples=5)
+    elif key.startswith("filter_tail"):
         sid, diag, cc, e, a = args
         kernel = lambda: filter_tail(sid, diag, cc, e, a)
         plain = lambda: filter_tail_plain(sid, diag, cc, e, a)
@@ -1807,8 +1908,8 @@ def _hold_call(name: str, key: str, args: list, kw: dict, row: str | None,
         base = {"source": "fem_tpu_torch/csrc/filter_tail.cu",
                 "replaces": "fem_tpu/ops/filter_tail_pallas.py:213"}
         slow = sid.shape[2] + cc >= 4096  # the plain version's loop is seconds long there
-        timing = dict(plain_reps=1 if slow else 3, plain_samples=2 if slow else 5,
-                      cuda_name=plan(sid.shape[2], cc).kernel)
+        timing = dict(kernel="filter_tail", plain_reps=1 if slow else 3,
+                      plain_samples=2 if slow else 5, cuda_name=plan(sid.shape[2], cc).kernel)
     else:
         dindex, v_sid, v_pos, v_lane, both, lens, e = args
         used = kw["used"]
@@ -1819,7 +1920,7 @@ def _hold_call(name: str, key: str, args: list, kw: dict, row: str | None,
         what = f"V={v_sid.shape[0]} Lmax={both.shape[1]} e={e}"
         base = {"source": "fem_tpu_torch/csrc/banded_myers.cu",
                 "replaces": "fem_tpu/ops/verify_pallas.py:122"}
-        timing = dict(plain_reps=2, plain_samples=3)
+        timing = dict(kernel="banded_myers", plain_reps=2, plain_samples=3)
     if row is None:
         got, want = kernel(), plain()
         torch.cuda.synchronize()
@@ -1828,12 +1929,26 @@ def _hold_call(name: str, key: str, args: list, kw: dict, row: str | None,
         check(d == 0, f"{name}: {key} differs from its plain version")
         return None
     res = {"name": row, "route": "cuda", **base, "library_ms": None}
-    res.update(compare_and_time(key.rsplit("_", 1)[0], f"the {name} inputs of {key}",
+    res.update(compare_and_time(timing.pop("kernel"), f"the {name} inputs of {key}",
                                 kernel, plain, **timing))
     res.update(bnd)
     _log_times(f"{head} {row}", f"on the {name} inputs ({what}; {note}), max_abs_err "
                f"{res['max_abs_err']}", res, bnd)
     return res
+
+
+def occ_rows(tag: str, captured: dict, head: str) -> list[dict]:
+    """The occurrence-slab calls in `captured` (keys starting "occ_"; taken
+    out of it), each held against its plain version on the inputs the main
+    path gave it: those named in ROW_LAUNCHES timed as kernel-table rows,
+    which are returned; the others held for equality alone."""
+    out = []
+    for key in sorted(k for k in captured if k.startswith("occ_")):
+        args, kw = captured.pop(key)
+        row = _hold_call(tag, key, args, kw, key if key in ROW_LAUNCHES else None, head=head)
+        if row is not None:
+            out.append(row)
+    return out
 
 
 def phase_configs(workdir: str, seqs, benign_paths: dict) -> tuple[dict, list]:
@@ -1885,8 +2000,8 @@ def phase_configs(workdir: str, seqs, benign_paths: dict) -> tuple[dict, list]:
                  f"{[b.num_reads for b in batches]} padded to {BATCH}", run)
         graphs = check_graphs(tag, engine, len(batches) + run["dispatches"])
         check(run["launches"]["filter_tail"] == run["launches"]["banded_myers"]
-              == len(batches) + run["dispatches"], f"{tag}: not one launch of each kernel "
-              f"a dispatch: {run['launches']}")
+              == run["launches"]["occ_slab"] == len(batches) + run["dispatches"],
+              f"{tag}: not one launch of each kernel a dispatch: {run['launches']}")
         counters = baseline_check(tag, paths, run, e=e, a=a, num_reads=SWEEP_READS)
         in_bound = step <= length // (e + 2) - k + 1
         tiers = collections.Counter(
@@ -1932,16 +2047,18 @@ def phase_configs(workdir: str, seqs, benign_paths: dict) -> tuple[dict, list]:
     return out, rows
 
 
-def both_launched(launches: dict) -> bool:
-    """Both kernels launched at least once; a count that is missing is none."""
-    return all(launches.get(k, 0) > 0 for k in ("filter_tail", "banded_myers"))
+def all_launched(launches: dict) -> bool:
+    """Each of the port's kernels launched at least once; a count that is
+    missing is none."""
+    return all(launches.get(k, 0) > 0 for k in SHAPES_KEY)
 
 
-def scale_rows(tag: str, engine, batch, rows: dict) -> list[dict]:
+def scale_rows(tag: str, engine, batch, rows: dict) -> tuple[list[dict], dict]:
     """`batch` mapped once by `engine` with the eager step (a replay calls
     no wrapper); for each row (name -> (call key, test of the wrapper
     call)), the first call that passes its test is held against its plain
-    version (exact) and timed as a kernel-table row."""
+    version (exact) and timed as a kernel-table row. Returns the rows and
+    the captured calls by row."""
     engine.eager_step = True
     probe = Probe(engine)
     probe.capture = {row: test for row, (_, test) in rows.items()}
@@ -1949,8 +2066,43 @@ def scale_rows(tag: str, engine, batch, rows: dict) -> list[dict]:
     probe.close()
     check(set(probe.captured) == set(rows),
           f"{tag}: captured the calls of {sorted(probe.captured)} only")
-    return [_hold_call(tag, key, *probe.captured.pop(row), row, head="[scale]")
-            for row, (key, _) in rows.items()]
+    return ([_hold_call(tag, key, *probe.captured[row], row, head="[scale]")
+             for row, (key, _) in rows.items()], probe.captured)
+
+
+def occ_wider(args: list) -> None:
+    """The occurrence slab at the wider cap_occ of the command line's
+    ladder (SCALE_WIDER), on tier-0 seed tables of phase 11's map: as many
+    lanes as the tier's batch holds, those whose groups passed the tier-0
+    cap_occ first (the reads the ladder retries there). Each mode held
+    against the plain version (exact): own bound and slab, the bound
+    alone, the slab at a given bound (the own one raised in every other
+    group, -1 in the first); the own mode timed warm by CUDA events."""
+    from fem_tpu_torch.ops.occ_slab import occ_bound, occ_slab, occ_slab_plain
+
+    off_s, lfreq_s, start_s, lane_ok, occ, cap0 = args
+    over = occ_slab_plain(*args).overflow_occ.any(dim=1)
+    order = torch.sort((~over).int(), stable=True).indices
+    for tier, reads, cap in SCALE_WIDER:
+        idx = order[: 2 * reads]
+        tables = [x[idx].contiguous() for x in (off_s, lfreq_s, start_s, lane_ok)]
+        own = occ_slab_plain(*tables, occ, cap)
+        d = max_abs_err(occ_parts(occ_slab(*tables, occ, cap)), occ_parts(own))
+        d = max(d, max_abs_err(occ_parts(occ_bound(*tables, occ, cap)), occ_parts(own)[2:]))
+        given = own.tkey.clone()
+        given.view(-1)[1::2] += 1 << 33
+        given.view(-1)[0] = -1
+        d = max(d, max_abs_err(occ_parts(occ_slab(*tables, occ, cap, tkey=given)),
+                               occ_parts(occ_slab_plain(*tables, occ, cap, tkey=given))))
+        torch.cuda.synchronize()
+        bnd, note = occ_bound_of(*tables, cap, "own")
+        ms = cuda_ms(lambda: occ_slab(*tables, occ, cap), 20)
+        log(f"[scale] occ_slab at tier {tier}'s cap_occ on the map's seed tables: NB="
+            f"{idx.numel()} ({int(over[idx].sum())} of them over cap_occ {cap0} at tier 0) "
+            f"G={off_s.shape[1]} CAP={cap}; {note}; own, bound-only and given-bound modes "
+            f"max_abs_err {d}; {ms:.4f} ms warm, bound {bnd['bound_ms'] * 1e3:.2f} us by "
+            f"{bnd['bound_by']}")
+        check(d == 0, f"occ_slab differs from its plain version at cap_occ {cap}")
 
 
 def phase_scale(workdir: str) -> tuple[dict, list]:
@@ -1990,7 +2142,7 @@ def phase_scale(workdir: str) -> tuple[dict, list]:
     for name, path in (("map", "scale"), ("map_grid", "scale_grid")):
         st = stages[name]
         check(st["records_equal"] and st["counters_equal"] and st["golden_equal"]
-              and both_launched(st["kernel_launches"]),
+              and all_launched(st["kernel_launches"]),
               f"scale {name}: not equal to fem_baseline, or a kernel never launched: "
               f"{st['kernel_launches']}")
         shapes = st["launches_by_shape"]
@@ -1998,7 +2150,9 @@ def phase_scale(workdir: str) -> tuple[dict, list]:
             "tail_shapes": {tuple(int(x) for x in k.split("+")): n
                             for k, n in shapes["filter_tail"].items()},
             "myers_shapes": {tuple(int(x) for x in k.split("x")): n
-                             for k, n in shapes["banded_myers"].items()}}
+                             for k, n in shapes["banded_myers"].items()},
+            "occ_shapes": {tuple(int(x) for x in k.split("x")): n
+                           for k, n in shapes["occ_slab"].items()}}
     check(len(stages["map_grid"]["cells"]) == 4, "scale: the grid is not (1, 4)")
     from fem_tpu_torch.pipeline.cli import eager_dispatches, programs_line
 
@@ -2017,6 +2171,8 @@ def phase_scale(workdir: str) -> tuple[dict, list]:
                                             batch_size=SCALE_BATCH))
     args = FemArgs(error_threshold=E, num_additional_qgrams=A)
     is_tail = lambda attr, a: attr == "filter_tail" and (a[0].shape[2], a[2]) == SCALE_TAIL
+    is_occ = lambda attr, a: attr == "occ_slab" and (a[5], a[0].shape[0]) == (
+        SCALE_TAIL[0], 2 * SCALE_BATCH)
     rows = []
     for tag, config, slots in (
             ("scale", EngineConfig(), SCALE_VERIFY_SLOTS),
@@ -2028,13 +2184,17 @@ def phase_scale(workdir: str) -> tuple[dict, list]:
               f"{tag}: the command line's defaults are not the rows' shapes")
         engine = MappingEngine(args, ref, index, config)
         suffix = "" if tag == "scale" else "_shard"
-        rows += scale_rows(tag, engine, batch, {
+        got, captured = scale_rows(tag, engine, batch, {
             f"filter_tail_scale{suffix}": ("filter_tail_tier0", is_tail),
             f"banded_myers_scale{suffix}": (
                 "banded_myers_tier0",
                 lambda attr, a, slots=slots: attr == "verify_candidates"
-                and (a[1].shape[0], a[4].shape[0]) == (slots, 2 * SCALE_BATCH))})
-        del engine
+                and (a[1].shape[0], a[4].shape[0]) == (slots, 2 * SCALE_BATCH)),
+            f"occ_slab_scale{suffix}": ("occ_slab_tier0", is_occ)})
+        rows += got
+        if tag == "scale":
+            occ_wider(captured["occ_slab_scale"][0])
+        del engine, captured
         torch.cuda.empty_cache()
     log(f"[scale] phase 11: {time.perf_counter() - t_phase:.1f} s (the tool "
         f"{summary['seconds']:.1f} s)")
@@ -2059,6 +2219,8 @@ def main() -> int:
         is_verify = lambda attr, a, row: (  # a row's own test of (slots, lanes)
             attr == "verify_candidates"
             and ROW_LAUNCHES[row][1]((a[1].shape[0], a[4].shape[0])))
+        is_occ = lambda attr, a, row: (  # a row's own test of (cap_occ, lanes)
+            attr == "occ_slab" and ROW_LAUNCHES[row][1]((a[5], a[0].shape[0])))
         benign, captured = phase_main(
             "benign", ref, index, paths,
             EngineConfig(batch_size=BATCH, cap_occ=80, cap_cand=16,
@@ -2066,8 +2228,10 @@ def main() -> int:
             dev, turns=("one_at_a_time", "stream", "stream", "one_at_a_time"),
             capture={"filter_tail": lambda attr, a: is_tail(attr, a, (80, 16)),
                      "filter_tail_tier1": lambda attr, a: is_tail(attr, a, TIER1[1:]),
-                     "banded_myers": lambda attr, a: is_verify(attr, a, "banded_myers")},
+                     "banded_myers": lambda attr, a: is_verify(attr, a, "banded_myers"),
+                     "occ_slab": lambda attr, a: is_occ(attr, a, "occ_slab")},
             no_ladder_pass=True)
+        rows += occ_rows("benign", captured, "[replay]")
         phase_replay(rows, captured, "main_inputs")
         lap("benign phases 5-6")
         del ref, index, captured
@@ -2086,7 +2250,10 @@ def main() -> int:
                      "filter_tail_tier1": lambda attr, a: is_tail(attr, a, TIER1[1:]),
                      "filter_tail_tier2": lambda attr, a: is_tail(attr, a, TIER2[1:]),
                      "banded_myers_tier2":
-                         lambda attr, a: is_verify(attr, a, "banded_myers_tier2")})
+                         lambda attr, a: is_verify(attr, a, "banded_myers_tier2"),
+                     "occ_slab_tier1": lambda attr, a: is_occ(attr, a, "occ_slab_tier1"),
+                     "occ_slab_tier2": lambda attr, a: is_occ(attr, a, "occ_slab_tier2")})
+        rows += occ_rows("adversarial", captured, "[replay]")
         phase_replay(rows, captured, "adversarial_inputs")
         lap("adversarial phases 3, 5-6")
         del ref, index, captured
@@ -2121,7 +2288,7 @@ def main() -> int:
     for row in rows:
         kernel, at_shape, path = ROW_LAUNCHES[row["name"]]
         count = lambda by_shape: sum(n for s, n in by_shape.items() if at_shape(s))
-        shapes = "tail_shapes" if kernel == "filter_tail" else "myers_shapes"
+        shapes = SHAPES_KEY[kernel]
         row["launches"] = count(paths[path][shapes])
         if path in runs:
             row.update({f"launches_{point}": count(run[shapes]) for point, run in runs.items()})

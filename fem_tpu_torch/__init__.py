@@ -11,7 +11,8 @@ every framework-free module it uses, under the same names. Layout:
   native/      C++ SAM emitter, exact CPU mapper, FASTQ reader and the
                fem_baseline oracle (native/src/), built with g++ on first use
   ops/         the device stages as plain functions on tensors
-  csrc/        the hand-written CUDA kernels (banded Myers, filter tail)
+  csrc/        the hand-written CUDA kernels (occurrence slab, filter tail,
+               banded Myers)
   kernels.py   builds csrc/*.cu with nvcc on first use and loads them
   pipeline/    MappingEngine: batches, device step, host emission
 

@@ -1,13 +1,15 @@
 // Host build of the kernels' per-lane arithmetic (g++, no CUDA): the same
-// header code as on the card. A filter-tail lane runs as one emulated warp
-// or block (warp_emul.h), a Myers slot as one plain call. The CPU tests
-// hold these entry points against the plain torch versions.
+// header code as on the card. A filter-tail lane or an occurrence-slab item
+// runs as one emulated warp or block (warp_emul.h), a Myers slot as one
+// plain call. The CPU tests hold these entry points against the plain torch
+// versions.
 #include <vector>
 
 #include "warp_emul.h"
 
 #include "filter_tail_core.h"
 #include "myers_core.h"
+#include "occ_slab_core.h"
 
 namespace {
 
@@ -78,4 +80,25 @@ extern "C" void fem_host_banded_myers(const uint8_t* ref, int64_t ref_len,
   for (int v = 0; v < num_slots; ++v)
     myers::verify_slot(ref, ref_len, ref_offsets, num_seqs, v_sid, v_pos,
                        v_lane, both, lens, nb, lmax, e, v, used, ed, end);
+}
+
+// The occurrence slab's items one after the other, each as one emulated
+// warp or block: of occ::threads(cap) threads, as on the card, or of
+// `threads` (a multiple of 32). Arguments as fem_occ_slab's. Returns 0.
+extern "C" int fem_host_occ_slab(const int64_t* off, const int64_t* lfreq,
+                                 const int64_t* start, const uint8_t* lane_ok,
+                                 const int64_t* occ_tab, int64_t n_occ,
+                                 int64_t items, int S, int cap, int mode,
+                                 const int64_t* tkey_in, int32_t* out_sid,
+                                 int32_t* out_diag, uint8_t* overflow,
+                                 int64_t* tkey_out, int threads) {
+  int T = threads > 0 ? threads : occ::threads(cap);
+  std::vector<int64_t> scratch(occ::scratch_words(S, T));
+  for (int64_t item = 0; item < items; ++item)
+    warp_emul::run_block(T, [&](int t) {
+      occ::occ_slab_item(T, t, item, S, cap, mode, off, lfreq, start, lane_ok,
+                         occ_tab, n_occ, tkey_in, out_sid, out_diag, overflow,
+                         tkey_out, scratch.data());
+    });
+  return 0;
 }

@@ -43,9 +43,10 @@ NVCC_FLAGS = [
 ]
 build_log = ""  # ptxas -v output of the last build in this process
 
-launches = {"banded_myers": 0, "filter_tail": 0}
+launches = {"banded_myers": 0, "filter_tail": 0, "occ_slab": 0}
 # The same launches by shape: filter_tail's key is (cap_occ, cap_cand),
-# banded_myers' is (verify slots, read-strand lanes).
+# banded_myers' is (verify slots, read-strand lanes), occ_slab's is
+# (cap_occ, read-strand lanes).
 launch_shapes = {k: collections.Counter() for k in launches}
 
 _lock = threading.Lock()
@@ -158,6 +159,12 @@ def library() -> ctypes.CDLL:
                 _P, _P, _P,  # out_sid, out_pos, overflow
                 _P, _I, _I, _P,  # workspace, its rows, threads (0: the plan's), stream
             ]
+            lib.fem_occ_slab.restype = _I
+            lib.fem_occ_slab.argtypes = [
+                _P, _P, _P, _P, _P, _I64,  # off, lfreq, start, lane_ok, occ, n_occ
+                _I64, _I, _I, _I, _P,  # items, S, cap, mode, tkey_in
+                _P, _P, _P, _P, _P,  # out_sid, out_diag, overflow, tkey_out, stream
+            ]
             lib.fem_cuda_error_string.restype = ctypes.c_char_p
             lib.fem_cuda_error_string.argtypes = [_I]
             _lib = lib
@@ -188,5 +195,9 @@ def build_host_check(out_dir: str) -> ctypes.CDLL:
     lib.fem_host_banded_myers.restype = None
     lib.fem_host_banded_myers.argtypes = [
         _P, _I64, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P,
+    ]
+    lib.fem_host_occ_slab.restype = _I
+    lib.fem_host_occ_slab.argtypes = [
+        _P, _P, _P, _P, _P, _I64, _I64, _I, _I, _I, _P, _P, _P, _P, _P, _I,
     ]
     return lib

@@ -12,30 +12,33 @@ Parity-critical quirks kept:
     of the other seeds (src/filter.c:85);
   * candidates near chromosome edges drop and survivors shift by -e to the
     band start (src/filter.c:133-144).
-Slab slots follow fem_tpu's 8-aligned layout: seed j owns the aligned
-8-slot chunks covering its CSR run, so `overflow_occ` (the capacity-retry
-flag) is the same rule bit for bit.
+The slab itself, its 8-aligned layout (so `overflow_occ`, the
+capacity-retry flag, is fem_tpu's rule bit for bit), the read-offset drop
+and the last-seed truncation are ops/occ_slab.py: a CUDA kernel on the
+card, the plain torch version on the CPU.
 
 On a shard of a coordinate-sharded index (fem_tpu/ops/candidates.py's
 `index_axis` branches) the seeds sort by their GLOBAL frequency while the
 runs come from the shard's local CSR; the last-seed truncation bound is a
 maximum over every index shard, so generation splits there:
 `candidates_front` returns the shard's own bound, the caller reduces it
-over the index axis, and `candidates_back` finishes with the reduced
-bound. Reads whose candidates fall in the first e positions of a slice
-that starts mid-chromosome carry the inherent bit (halo risk), and only
-candidates inside the shard's owned range survive.
+over the index axis, and `candidates_back` writes the slab truncated at
+the reduced bound (on a whole index `candidates_front` writes it). Reads
+whose candidates fall in the first e positions of a slice that starts
+mid-chromosome carry the inherent bit (halo risk), and only candidates
+inside the shard's owned range survive.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
 from fem_tpu_torch.ops.filter_tail import filter_tail
+from fem_tpu_torch.ops.occ_slab import occ_bound, occ_slab
 from fem_tpu_torch.ops.seed_select import U32, select_qgrams
-from fem_tpu_torch.ops.types import BIG, SENTINEL_SID, DeviceIndex, FilterParams
+from fem_tpu_torch.ops.types import SENTINEL_SID, DeviceIndex, FilterParams
 
 
 class CandidateResult(NamedTuple):
@@ -50,30 +53,23 @@ class CandidateResult(NamedTuple):
 
 
 class CandidateFront(NamedTuple):
-    """What generation holds at the last-seed truncation: the occurrence
-    slab, and `tkey`, this index's (or shard's) bound to be reduced."""
+    """What generation holds at the last-seed truncation: the selected
+    seeds' runs, `tkey`, this index's (or shard's) bound to be reduced, and
+    on a whole index the occurrence slab already truncated at it."""
 
     lengths: torch.Tensor  # (NB,) int32
-    sid: torch.Tensor  # (NB, G, CAP) int64
-    diag: torch.Tensor  # (NB, G, CAP) int64
-    slot_valid: torch.Tensor  # (NB, G, CAP) bool
-    is_last: torch.Tensor  # (NB, G, CAP) bool: a slot of the most frequent seed
+    off_s: torch.Tensor  # (NB, G, S) int64 CSR offsets, stable frequency order
+    lfreq_s: torch.Tensor  # (NB, G, S) int64 run lengths
+    start_s: torch.Tensor  # (NB, G, S) int64 read offsets
+    lane_ok: torch.Tensor  # (NB, G) bool
+    sid: Optional[torch.Tensor]  # (NB, G, CAP) int32 slab; None on a shard
+    diag: Optional[torch.Tensor]  # (NB, G, CAP) int32 slab; None on a shard
     tkey: torch.Tensor  # (NB, G, 1) int64
     overflow_occ: torch.Tensor  # (NB, G) bool
     complete: torch.Tensor  # (NB, G) bool
     degenerate: torch.Tensor  # (NB, G) bool
     mappable: torch.Tensor  # (NB,) bool
     dp_total: torch.Tensor  # (NB,) int64
-
-
-def truncation_key(sid, diag, others) -> torch.Tensor:
-    """The last-seed truncation bound (src/filter.c:85) as one int64 key a
-    (lane, group): the largest sid << 32 | diag over the other seeds'
-    valid slots, -1 where there is none. diag of a valid slot lies in
-    [0, 2^32), so the key's order is the lexicographic (sid, diag) order,
-    and its maximum over index shards is the JAX package's pmax of tsid
-    followed by the pmax of tpos at that tsid."""
-    return torch.where(others, (sid << 32) | diag, -1).amax(dim=2, keepdim=True)
 
 
 def generate_candidates(
@@ -105,8 +101,6 @@ def candidates_front(
     S = params.num_qgrams
     e = params.error_threshold
     CAP = params.cap_occ
-    if CAP % 8:
-        raise ValueError("cap_occ must be a multiple of 8")
 
     num_seeds = lengths.long() - params.kmer_size + 1
     min_group = torch.where(num_seeds > 0, num_seeds // G, 0)
@@ -152,36 +146,15 @@ def candidates_front(
     lfreq_s = torch.gather(lfreq, 2, order)
 
     # ---- occurrence gather into CAP slots (8-aligned chunks) --------------
-    fc = lfreq_s.clamp(max=CAP + 1)
-    srow = off_s & 7  # run start within its aligned 8-slot row
-    fc8 = torch.where(fc > 0, ((srow + fc + 7) // 8) * 8, 0)
-    pfx8 = torch.cumsum(fc8, dim=2) - fc8  # exclusive, 8-aligned slot starts
-    overflow_occ = pfx8[..., -1] + fc8[..., -1] > CAP  # (NB, G)
-
-    t = torch.arange(CAP, device=dev)
-    j_of_t = torch.zeros((NB, G, CAP), dtype=torch.int64, device=dev)
-    for j in range(1, S):  # owning seed of each slot
-        j_of_t += t >= pfx8[..., j, None]
-
-    def of_seed(x):  # (NB, G, S) -> (NB, G, CAP)
-        return torch.gather(x, 2, j_of_t)
-
-    rel = t - of_seed(pfx8)  # slot offset from the seed's first aligned row
-    srow_t = of_seed(srow)
+    # On a whole index the lane's own bound is final, and one call writes
+    # the slab truncated at it; a shard's bound is reduced over every index
+    # shard first, so there the slab waits for candidates_back.
     lane_ok = mappable[:, None] & complete  # (NB, G)
-    slot_valid = (rel >= srow_t) & (rel < srow_t + of_seed(fc)) & lane_ok[..., None]
-    occ_i = ((of_seed(off_s) & ~7) + rel).clamp(0, index.occ.shape[0] - 1)
-    occ = index.occ[occ_i]
-    sid = occ >> 32
-    pos = occ & U32
-    seed_start = of_seed(start_s)
-    slot_valid &= pos >= seed_start  # src/filter.c:89-90
-    diag = pos - seed_start
-    is_last = j_of_t == S - 1
-
-    tkey = truncation_key(sid, diag, slot_valid & ~is_last)
-    return CandidateFront(lengths, sid, diag, slot_valid, is_last, tkey, overflow_occ,
-                          complete, degenerate, mappable, dp_total)
+    write = occ_slab if index.halo_lo is None else occ_bound
+    slab = write(off_s, lfreq_s, start_s, lane_ok, index.occ, CAP)
+    return CandidateFront(lengths, off_s, lfreq_s, start_s, lane_ok, slab.sid, slab.diag,
+                          slab.tkey, slab.overflow_occ, complete, degenerate, mappable,
+                          dp_total)
 
 
 def candidates_back(
@@ -189,26 +162,26 @@ def candidates_back(
 ) -> CandidateResult:
     """Generation from the truncation on, given the bound `tkey` reduced
     over every index shard (front.tkey itself on a whole index)."""
-    lengths, sid, diag, slot_valid, is_last, _, overflow_occ, complete, degenerate, \
-        mappable, dp_total = front
+    lengths, overflow_occ, complete, degenerate, mappable, dp_total = (
+        front.lengths, front.overflow_occ, front.complete, front.degenerate,
+        front.mappable, front.dp_total)
     e = params.error_threshold
 
-    # ---- last-seed truncation (src/filter.c:85) ---------------------------
-    slot_valid = slot_valid & (~is_last | (((sid << 32) | diag) <= tkey))
-
-    # Shard halo risk (fem_tpu/ops/candidates.py:385-395): a candidate in
+    # On a shard: the slab, truncated at the reduced bound (src/filter.c:85),
+    # and the halo risk (fem_tpu/ops/candidates.py:385-395): a candidate in
     # the first e positions of a slice that starts mid-chromosome may sit
     # within e of one the shard cannot see, so the fold cannot be trusted.
-    halo_risk = None
+    sid, diag, halo_risk = front.sid, front.diag, None
     if index.halo_lo is not None:
-        hlo = index.halo_lo[sid.clamp(0, index.halo_lo.shape[0] - 1)]
-        halo_risk = (slot_valid & (diag >= hlo) & (diag < hlo + e)).any(dim=2).any(dim=1)
+        sid, diag = occ_slab(front.off_s, front.lfreq_s, front.start_s, front.lane_ok,
+                             index.occ, params.cap_occ, tkey=tkey)[:2]
+        hlo = index.halo_lo[sid.clamp(0, index.halo_lo.shape[0] - 1).long()]
+        halo_risk = ((sid != SENTINEL_SID) & (diag >= hlo) & (diag < hlo + e)
+                     ).any(dim=2).any(dim=1)
 
     # ---- sort + vote + dedup fold -----------------------------------------
     cand_sid, cand_pos, overflow_cand = filter_tail(
-        torch.where(slot_valid, sid, SENTINEL_SID).int(),
-        torch.where(slot_valid, diag, BIG).int(),
-        params.cap_cand, e, params.num_additional_qgrams,
+        sid, diag, params.cap_cand, e, params.num_additional_qgrams,
     )
 
     # ---- range filter + band-start shift (src/filter.c:133-144) -----------

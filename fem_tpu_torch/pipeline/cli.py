@@ -569,6 +569,7 @@ def _dump_engine_json(path: str, engine, load_s: dict, items: list, t_stream: fl
         "launches_by_shape": {
             "filter_tail": {f"{c}+{cc}": n for (c, cc), n in sorted(shapes["filter_tail"].items())},
             "banded_myers": {f"{v}x{nb}": n for (v, nb), n in sorted(shapes["banded_myers"].items())},
+            "occ_slab": {f"{c}x{nb}": n for (c, nb), n in sorted(shapes["occ_slab"].items())},
         },
         **engine.report(),
     }

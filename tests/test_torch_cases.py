@@ -204,3 +204,80 @@ SWEEP_CONFIGS = {
 }
 SWEEP_CAPS = dict(batch_size=48, cap_occ=256, cap_cand=128, verify_per_read=32,
                   accept_per_read=16)
+
+
+# ---- the occurrence slab (ops/occ_slab.py, csrc/occ_slab_core.h) ----------
+# Seed tables of (NB, G, S) items against a random occurrence table, each
+# case at one edge of the slab's rules: the widths are tier 0's, tier 1's
+# and tier 2's cap_occ.
+OCC_WIDTHS = (256, 2048, 16384)
+OCC_CASE_NAMES = ("random", "mid_row", "run_cap", "run_cap_plus_1", "demand_cap",
+                  "demand_cap_plus_1", "before_read_offset", "tie", "lane_off",
+                  "empty_runs")
+
+
+def occ_case(name, cap, S=7, NB=4, G=3, seed=0):
+    """dict(off, lfreq, start: (NB, G, S) int64; lane_ok: (NB, G) bool;
+    occ: (N,) int64 keys sid << 32 | pos) for the case `name`."""
+    rng = np.random.default_rng([seed, cap, S, OCC_CASE_NAMES.index(name)])
+    n = 4 * cap + 16 * NB * G * S + 4096
+    sid = rng.integers(0, 3, n)
+    pos = rng.integers(0, 6000, n)
+    occ = (sid << 32) | pos
+    shape = (NB, G, S)
+    lfreq = rng.choice([0, 1, 2, 5, 9, 17, max(cap // 8, 1), max(cap // S, 1)], shape)
+    start = rng.integers(0, 60, shape)
+    lane_ok = rng.random((NB, G)) < 0.9
+    if name == "mid_row":  # every run starts inside its 8-slot row
+        lfreq = rng.integers(1, 30, shape)
+        off = rng.integers(0, (n - 64) // 8, shape) * 8 + rng.integers(1, 8, shape)
+    elif name in ("run_cap", "run_cap_plus_1"):  # one seed a group fills it, or one more
+        lfreq = rng.integers(0, 4, shape)
+        j = rng.integers(0, S, (NB, G))
+        extra = [cap] if name == "run_cap" else [cap + 1, cap + 1000]
+        lfreq[np.arange(NB)[:, None], np.arange(G)[None, :], j] = rng.choice(extra, (NB, G))
+    elif name in ("demand_cap", "demand_cap_plus_1"):  # rows sum to cap, or a row more
+        srow = rng.integers(0, 8, shape)
+        rows = np.zeros(shape, np.int64)
+        for b in range(NB):
+            for g in range(G):
+                cut = np.sort(rng.integers(0, cap // 8 + 1, S - 1))
+                rows[b, g] = np.diff(np.r_[0, cut, cap // 8])
+        rows[..., -1] += name == "demand_cap_plus_1"
+        lfreq = np.where(rows > 0, 8 * rows - srow - rng.integers(0, 8, shape) * (rows > 1), 0)
+        lfreq = np.where(8 * rows - srow - lfreq >= 8, 8 * rows - srow, lfreq)
+        off = rng.integers(0, (n - cap - 64) // 8, shape) * 8 + srow
+    elif name == "before_read_offset":  # many occurrences lie before the seed's offset
+        start = rng.integers(2000, 5000, shape)
+        lfreq = rng.integers(1, 40, shape)
+    elif name == "lane_off":
+        lane_ok[:] = False
+        lane_ok[0, 0] = True
+    elif name == "empty_runs":  # no run in some seeds, first and last among them
+        lfreq[..., 0] = 0
+        lfreq[..., 3 % S] = 0
+        lfreq[1, :, -1] = 0
+        lfreq[2, 1] = 0  # a group with no run at all
+    if name not in ("mid_row", "demand_cap", "demand_cap_plus_1"):
+        off = rng.integers(0, n - int(lfreq.max(initial=0)) - 8, shape)
+    if name in ("run_cap", "run_cap_plus_1"):  # lane 0: the one run alone, row-aligned
+        big = lfreq[0] >= cap
+        lfreq[0] = np.where(big, lfreq[0], 0)
+        off[0] = np.where(big, off[0] // 8 * 8, off[0])
+    if name == "tie":  # the last seed's keys equal to, and one past, the bound
+        off = rng.permutation(n // 8)[: NB * G * S].reshape(shape) * 8  # runs apart
+        lfreq[:] = 2
+        lane_ok[:] = True
+        start[:] = 10
+        for b in range(NB):
+            for g in range(G):
+                base = int(off[b, g, 0])
+                for j in range(S - 1):  # the other seeds: sid 1, diag <= 100
+                    o = int(off[b, g, j])
+                    occ[o : o + 2] = (1 << 32) | (10 + rng.integers(0, 100, 2))
+                occ[base] = (1 << 32) | 110  # the bound: (1, 100)
+                o = int(off[b, g, S - 1])
+                occ[o] = (1 << 32) | (110 + (b + g) % 2)  # ties it, or passes it by one
+                occ[o + 1] = (rng.integers(0, 3) << 32) | 50
+    return dict(off=off.astype(np.int64), lfreq=lfreq.astype(np.int64),
+                start=start.astype(np.int64), lane_ok=lane_ok, occ=occ.astype(np.int64))

@@ -10,6 +10,7 @@ kernel is held against its plain torch version on the same CUDA tensors;
 all outputs are integers and must be exactly equal.
 """
 
+import collections
 import dataclasses
 
 import numpy as np
@@ -20,18 +21,24 @@ from fem_tpu.golden.model import GoldenMapper
 from fem_tpu_torch import kernels, sim
 from fem_tpu_torch.core.encoding import encode
 from fem_tpu_torch.io.fastx import ReadBatch
+from fem_tpu_torch.ops.candidates import candidates_front
 from fem_tpu_torch.ops.filter_tail import WORKSPACE_ROWS, filter_tail, filter_tail_plain, plan
-from fem_tpu_torch.ops.types import BIG, SENTINEL_SID, device_index_from_host
+from fem_tpu_torch.ops.hashing import ambiguous_base_counts, reverse_complement, seed_hashes
+from fem_tpu_torch.ops.occ_slab import occ_bound, occ_slab, occ_slab_plain
+from fem_tpu_torch.ops.types import BIG, SENTINEL_SID, FilterParams, device_index_from_host
 from fem_tpu_torch.ops.verify import verify_candidates, verify_candidates_plain
 from fem_tpu_torch.pipeline.engine import EngineConfig, MappingEngine, TierConfig
 from fem_tpu_torch.stats import MappingStats
 from test_torch_cases import (
+    OCC_CASE_NAMES,
+    OCC_WIDTHS,
     SWEEP_CAPS,
     SWEEP_CONFIGS,
     TAIL_CASE_NAMES,
     TAIL_SHAPE,
     WIDE_CASE_NAMES,
     WIDE_SHAPES,
+    occ_case,
     slot_case,
     tail_cases,
     wide_tail_cases,
@@ -153,6 +160,110 @@ def test_filter_tail_kernel_rejects_bad_input(cuda):
         filter_tail(sid.long(), diag, 8, 5, 1)
 
 
+def _all_modes_equal(off, lfreq, start, lane_ok, occ, cap):
+    """The kernel against the plain version on the same CUDA tensors, in
+    each mode: own bound and slab, the bound alone, a given bound (the
+    own one raised in every other group, -1 in the first). Returns the
+    plain version's own-bound result."""
+    kernels.reset_launches()
+    got = occ_slab(off, lfreq, start, lane_ok, occ, cap)
+    torch.cuda.synchronize()
+    assert kernels.launches["occ_slab"] == 1
+    assert kernels.launches_by_shape()["occ_slab"] == {(cap, off.shape[0]): 1}
+    own = occ_slab_plain(off, lfreq, start, lane_ok, occ, cap)
+    for g, w in zip(got, own):
+        assert torch.equal(g, w)
+    bound = occ_bound(off, lfreq, start, lane_ok, occ, cap)
+    assert bound.sid is None and bound.diag is None
+    assert torch.equal(bound.overflow_occ, own.overflow_occ)
+    assert torch.equal(bound.tkey, own.tkey)
+    reduced = own.tkey.clone()
+    reduced.view(-1)[1::2] += 1 << 33
+    reduced.view(-1)[0] = -1
+    got = occ_slab(off, lfreq, start, lane_ok, occ, cap, tkey=reduced)
+    torch.cuda.synchronize()
+    want = occ_slab_plain(off, lfreq, start, lane_ok, occ, cap, tkey=reduced)
+    assert torch.equal(got.sid, want.sid) and torch.equal(got.diag, want.diag)
+    return own
+
+
+@pytest.mark.parametrize("cap", OCC_WIDTHS)
+@pytest.mark.parametrize("name", OCC_CASE_NAMES)
+def test_occ_slab_kernel_matches_plain(cuda, name, cap):
+    """The edge cases of tests/test_torch_occ_slab.py at tier 0's, tier 1's
+    and tier 2's cap_occ (a warp an item, a block an item)."""
+    c = {k: torch.from_numpy(v).to(cuda) for k, v in occ_case(name, cap, NB=40).items()}
+    _all_modes_equal(c["off"], c["lfreq"], c["start"], c["lane_ok"], c["occ"], cap)
+
+
+@pytest.mark.parametrize("tier,cap", [(0, 256), (1, 2048), (2, 16384)])
+def test_occ_slab_kernel_on_the_main_paths_seed_tables(cuda, tmp_path, tier, cap):
+    """The seed tables candidates_front builds on the card (satellite
+    genome: long runs, groups over cap_occ at tier 0), each tier's
+    cap_occ: the kernel's slabs, flags and bounds equal the plain
+    version's, and what candidates_front holds is the kernel's."""
+    from fem_tpu_torch.config import FemArgs
+    from fem_tpu_torch.index.build import build_index
+    from fem_tpu_torch.io import fastx
+
+    seqs = sim.satellite_genome(300_000, num_seqs=2, seed=5, satellite_fraction=0.15)
+    sim.write_fasta(str(tmp_path / "ref.fa"), seqs)
+    ref = fastx.read_fasta(str(tmp_path / "ref.fa"))
+    index = device_index_from_host(build_index(ref, 12, 3), ref, cuda)
+    batch = _batch(sim.simulate_reads(seqs, 256, read_length=100, max_errors=5, seed=6))
+    args = FemArgs(error_threshold=5, num_additional_qgrams=1)
+    params = FilterParams.from_args(args, batch.codes.shape[1], cap_occ=cap, cap_cand=cap)
+    codes = torch.from_numpy(batch.codes).to(cuda)
+    lengths = torch.from_numpy(batch.lengths).to(cuda)
+    both = torch.cat([codes, reverse_complement(codes, lengths)])
+    lens2 = torch.cat([lengths, lengths])
+    hashes = seed_hashes(both, params.kmer_size)
+    amb = ambiguous_base_counts(both, lens2, params.kmer_size)
+    front = candidates_front(both, lens2, hashes, amb, index, params)
+    want = _all_modes_equal(front.off_s, front.lfreq_s, front.start_s, front.lane_ok,
+                            index.occ, cap)
+    assert torch.equal(front.sid, want.sid) and torch.equal(front.diag, want.diag)
+    assert torch.equal(front.tkey, want.tkey)
+    assert (want.sid != SENTINEL_SID).any()
+    if tier == 0:
+        assert want.overflow_occ.any()
+
+
+def test_occ_slab_launches_equal_filter_tail_over_a_stream(cuda, tmp_path):
+    """One card, a pipelined stream with a two-rung ladder: one occurrence
+    slab launch a step, as many as the filter tail's, at each tier's width."""
+    from fem_tpu_torch.config import FemArgs
+    from fem_tpu_torch.index.build import build_index
+    from fem_tpu_torch.io import fastx
+
+    seqs = sim.satellite_genome(250_000, num_seqs=1, seed=17, satellite_fraction=0.15,
+                                unit_range=(24, 120), copies_range=(48, 400))
+    sim.write_fasta(str(tmp_path / "ref.fa"), seqs)
+    ref = fastx.read_fasta(str(tmp_path / "ref.fa"))
+    index = build_index(ref, kmer_size=12, step_size=3)
+    args = FemArgs(error_threshold=3, num_additional_qgrams=1)
+    reads = sim.simulate_reads(seqs, 192, read_length=100, max_errors=2, seed=19)
+    engine = MappingEngine(
+        args, ref, index,
+        EngineConfig(batch_size=16, cap_occ=32, cap_cand=32, verify_per_read=4,
+                     accept_per_read=2, tiers=TIERS),
+    )
+    kernels.reset_launches()
+    batches = [_batch(reads[i : i + 16]) for i in range(0, 192, 16)]
+    for _ in engine.map_stream(batches):
+        pass
+    assert engine.tier_dispatches > 0
+    steps = 12 + engine.tier_dispatches
+    assert kernels.launches["occ_slab"] == kernels.launches["filter_tail"] == steps
+    by_cap = collections.Counter()
+    for (cap, _), n in kernels.launches_by_shape()["occ_slab"].items():
+        by_cap[cap] += n
+    tail = collections.Counter()
+    for (cap, _), n in kernels.launches_by_shape()["filter_tail"].items():
+        tail[cap] += n
+    assert by_cap == tail
+
+
 @pytest.mark.parametrize("e", [0, 2, 5, 7])
 def test_myers_kernel_matches_plain(cuda, small_reference, small_index, e):
     """Reads copied from the reference with edits, plus out-of-range sids,
@@ -240,7 +351,7 @@ def test_engine_on_cuda_matches_golden(cuda, small_reference, small_index, defau
         recs, stats = engine.map_batch(batch)
         assert b"".join(recs) == b"".join(grecs)
         assert dataclasses.asdict(stats) == dataclasses.asdict(gstats)
-        assert kernels.launches == {"banded_myers": 1, "filter_tail": 1}
+        assert kernels.launches == {"banded_myers": 1, "filter_tail": 1, "occ_slab": 1}
     prog = engine.programs[0, 128]
     assert prog.graph is not None and prog.replays == 1
     assert kernels.launches_by_shape()["banded_myers"] == {(64 * 2 * 4, 128): 1}
@@ -402,7 +513,10 @@ def test_grid_program_on_cuda_replays(cuda, small_reference, small_index, defaul
     segments = 1 if grid == "data_2" else 3
     assert len(prog.cells) == len(devs)
     assert all(len(c.graphs) == segments and c.pool_bytes > 0 for c in prog.cells)
-    assert kernels.launches == {"filter_tail": 2 * len(devs), "banded_myers": 2 * len(devs)}
+    # An index grid's cell writes its slab in two launches around the
+    # bound's reduction over the shards, a whole index's in one.
+    assert kernels.launches == {"filter_tail": 2 * len(devs), "banded_myers": 2 * len(devs),
+                                "occ_slab": 2 * len(devs) * (1 if grid == "data_2" else 2)}
     engine.eager_step = True
     assert [engine.map_batch(b) for b in (full, short)] == want
     assert prog.replays == 3

@@ -75,7 +75,8 @@ def test_stages_pass_and_report(scale):
         st = stages[name]
         assert st["records_equal"] and st["counters_equal"] and st["golden_equal"]
         assert st["counters"][0] == 300 and st["records"] == st["counters"][4] > 0
-        assert st["launches_by_shape"] == {"filter_tail": {}, "banded_myers": {}}  # CPU
+        assert st["launches_by_shape"] == {"filter_tail": {}, "banded_myers": {},
+                                           "occ_slab": {}}  # CPU
         assert st["rss_bytes"] > 0 and st["seconds"] > 0
     cells = stages["map_grid"]["cells"]
     assert [c["cell"] for c in cells] == [[0, 0], [0, 1]]
@@ -183,15 +184,16 @@ def test_an_index_that_differs_exits_1(scale, tmp_path, capsys):
 
 
 def test_a_map_without_kernel_launches_exits_1(scale, tmp_path, monkeypatch, capsys):
-    """On the card a map must launch both kernels: an engine report whose
-    launch counts are empty (or name one kernel) fails the map stage and
-    the tool exits 1. The card is simulated: the maps run on the CPU and
+    """On the card a map must launch each of the port's kernels: an engine
+    report whose launch counts are empty (or leave one out) fails the map
+    stage and the tool exits 1. The card is simulated: the maps run on the CPU and
     their report's counts are replaced."""
     mod = scale[0]
     assert not mod.kernels_launched({})
     assert not mod.kernels_launched({"filter_tail": 3})
     assert not mod.kernels_launched({"filter_tail": 3, "banded_myers": 0})
-    assert mod.kernels_launched({"filter_tail": 3, "banded_myers": 1})
+    assert not mod.kernels_launched({"filter_tail": 3, "banded_myers": 1})
+    assert mod.kernels_launched({"filter_tail": 3, "banded_myers": 1, "occ_slab": 3})
     real_port = mod.Runner.port
 
     def port(self, tag, *args, env=None):

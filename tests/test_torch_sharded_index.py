@@ -16,7 +16,7 @@ import torch
 from fem_tpu import sim
 from fem_tpu.golden.model import GoldenMapper
 from fem_tpu.parallel import sharded_index as jsharded
-from fem_tpu_torch.ops.candidates import truncation_key
+from fem_tpu_torch.ops.occ_slab import truncation_key
 from fem_tpu_torch.ops.types import device_index_from_jax_shard
 from fem_tpu_torch.parallel import sharded_index as tsharded
 from fem_tpu_torch.parallel.mesh import make_index_mesh

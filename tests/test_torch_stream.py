@@ -262,11 +262,13 @@ def test_launch_counter_is_exact_under_threads():
     finally:
         sys.setswitchinterval(before)
     assert len(done) == 16
-    assert kernels.launches == {"banded_myers": 0, "filter_tail": 32_000}
+    assert kernels.launches == {"banded_myers": 0, "filter_tail": 32_000, "occ_slab": 0}
     assert kernels.launches_by_shape() == {
-        "banded_myers": {}, "filter_tail": {(80, 16): 16_000, (80, 17): 16_000}}
+        "banded_myers": {}, "filter_tail": {(80, 16): 16_000, (80, 17): 16_000},
+        "occ_slab": {}}
     kernels.reset_launches()
-    assert kernels.launches_by_shape() == {"banded_myers": {}, "filter_tail": {}}
+    assert kernels.launches_by_shape() == {"banded_myers": {}, "filter_tail": {},
+                                           "occ_slab": {}}
 
 
 def test_stage_timer_events_travel_with_the_batch():

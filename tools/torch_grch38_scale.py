@@ -20,7 +20,7 @@ of --gb gigabases (3.0 by default) is indexed and mapped:
               against `fem_baseline map -e 5 -a 1` on the same reads (once a
               --baseline-threads count, each equal), the golden oracle
               (`map --engine golden`) on the first reads as their records in
-              read order, and both kernels launched (on the card);
+              read order, and every kernel launched (on the card);
   map_grid    the same map with --index-shards N (4 by default; 1 skips
               it) on a (1, N) grid, every cell on the first card; on a
               machine with N cards or more also once over N cards
@@ -81,7 +81,7 @@ REPEAT_SHARE = 0.2
 READ_SEED = 77
 READ_LENGTH = 100
 E, A, K, STEP = 5, 1, 12, 3
-KERNELS = ("filter_tail", "banded_myers")
+KERNELS = ("filter_tail", "banded_myers", "occ_slab")
 COUNTER_NAMES = ("reads", "mapped reads", "candidates before the additional q-gram filter",
                  "candidates", "mappings")
 
