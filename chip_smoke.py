@@ -310,6 +310,8 @@ ROW_LAUNCHES = {
     "occ_slab_scale": ("occ_slab", lambda s: s == (SCALE_TAIL[0], 2 * SCALE_BATCH), "scale"),
     "occ_slab_scale_shard": ("occ_slab", lambda s: s == (SCALE_TAIL[0], 2 * SCALE_BATCH),
                              "scale_grid"),
+    # Phase 10's e=7 a=2 150 bp tier 0: ten seed runs a group.
+    "occ_slab_e7_len150": ("occ_slab", lambda s: s == (80, 2 * BATCH), "configs_e7_len150"),
 }
 # Where each kernel's launches by shape lie in a run's record.
 SHAPES_KEY = {"filter_tail": "tail_shapes", "banded_myers": "myers_shapes",
@@ -1864,6 +1866,8 @@ SWEEP_CALLS = {
     "filter_tail_tier0": lambda attr, a: attr == "filter_tail" and (a[0].shape[2], a[2]) == (80, 16),
     "banded_myers_tier0": lambda attr, a: (attr == "verify_candidates" and (
         a[1].shape[0], a[4].shape[0]) == (4 * BATCH, 2 * BATCH)),
+    "occ_slab_tier0": lambda attr, a: attr == "occ_slab" and (a[5], a[0].shape[0]) == (
+        80, 2 * BATCH),
     "filter_tail_tier1": lambda attr, a: attr == "filter_tail" and (a[0].shape[2], a[2]) == TIER1[1:],
     "banded_myers_tier1": lambda attr, a: (attr == "verify_candidates" and (
         a[1].shape[0], a[4].shape[0]) == (2 * TIER1[0] * 32, 2 * TIER1[0])),
@@ -1871,6 +1875,7 @@ SWEEP_CALLS = {
 # Which of them are rows of the kernel table, timed: (configuration, call).
 SWEEP_ROWS = {("e7_len150", "filter_tail_tier0"): "filter_tail_e7_a2",
               ("e7_len150", "banded_myers_tier0"): "banded_myers_lmax160",
+              ("e7_len150", "occ_slab_tier0"): "occ_slab_e7_len150",
               ("len76_step2", "banded_myers_tier0"): "banded_myers_lmax96"}
 
 
@@ -2028,7 +2033,7 @@ def phase_configs(workdir: str, seqs, benign_paths: dict) -> tuple[dict, list]:
         probe.close()
         check(again["digest"] == run["digest"] and again["stats"] == run["stats"],
               f"{tag}: the eager step gave other records or counters")
-        want = {"filter_tail_tier0", "banded_myers_tier0"} | (
+        want = {"filter_tail_tier0", "banded_myers_tier0", "occ_slab_tier0"} | (
             {"filter_tail_tier1", "banded_myers_tier1"} if tiers else set())
         check(want <= set(probe.captured), f"{tag}: captured {sorted(probe.captured)} only")
         for key, (args_, kw) in sorted(probe.captured.items()):
@@ -2038,7 +2043,8 @@ def phase_configs(workdir: str, seqs, benign_paths: dict) -> tuple[dict, list]:
         out[name] = {"counters": counters, "retried": run["retried"],
                      "dispatches": run["dispatches"], "fallback": run["fallback"],
                      "graphs": graphs, "reads_per_s": run["reads_per_s"],
-                     "tail_shapes": run["tail_shapes"], "myers_shapes": run["myers_shapes"]}
+                     "tail_shapes": run["tail_shapes"], "myers_shapes": run["myers_shapes"],
+                     "occ_shapes": run["occ_shapes"]}
         del engine, probe, batches, again
         torch.cuda.empty_cache()
     check({r["name"] for r in rows} == set(SWEEP_ROWS.values()),
