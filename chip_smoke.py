@@ -177,7 +177,8 @@ exits non-zero without its result line:
               0.25 Gb and 20,000 reads: the GRCh38 profile's 24 chromosomes,
               `python -m fem_tpu_torch index 12 3` byte-equal to
               fem_baseline's, `map -e 5 -a 1` at the command line's
-              defaults (B=10,000, 256 + 256, 16 verify slots a lane)
+              defaults (B=10,000, 256 + 256: tier 0 derives 256 from
+              0.25 Gb's 5 occurrences a bucket; 16 verify slots a lane)
               unsharded and on a (1, 4) grid on cuda:0, each equal to
               fem_baseline in records and counters and to the golden
               oracle on the first 64 reads, every kernel launched, every
@@ -198,6 +199,15 @@ exits non-zero without its result line:
               ladder's wider cap_occ, 2048 over 1,024 lanes and 16,384
               over 128 (the lanes over 256 first), in its three modes:
               exactly equal to the plain version, timed warm.
+  12. grch38  tools/torch_scale_rows.py as a process of its own: the same
+              profile at 3.0 Gb (~60 occurrences a 12-mer bucket), whose
+              index derives tier 0's cap_occ 576 (GRCH38_TAIL), and its
+              first batch of 10,000 reads mapped once with the eager step;
+              tier 0's occurrence slab at 576 over 20,000 lanes, its
+              filter tail at 576 + 256 (the block route) and its Myers at
+              320,000 slots, each held against its plain version and timed
+              in that process, a row of its own whose launches are that
+              batch's count at the row's shape.
 
 Each kernel's bound is the least time the card could take for the same
 inputs: the bytes it must move (inputs once, outputs once) over 3.35 TB/s,
@@ -258,6 +268,11 @@ SCALE_ARGS = ["--gb", "0.25", "--reads", "20000"]
 SCALE_BATCH = 10_000
 SCALE_TAIL = (256, 256)
 SCALE_VERIFY_SLOTS = 2 * SCALE_BATCH * 16
+# Phase 12: tools/torch_scale_rows.py at 3.0 Gb; tier 0's (cap_occ, cap_cand)
+# as the engine derives it from that index (59.6 occurrences a bucket).
+GRCH38_TAIL = (576, 256)
+GRCH38_ROWS = {"occ_slab_tier0": "occ_slab_grch38", "filter_tail_tier0": "filter_tail_grch38",
+               "banded_myers_tier0": "banded_myers_grch38"}
 # Phase 4: a flat reference of 2.2 GB whose chromosome starts past byte 2^31.
 FAR_REF_BYTES = 2_200_000_000
 FAR_OFFSET = 2**31 + 12_345
@@ -287,7 +302,8 @@ ROW_LAUNCHES = {
     "banded_myers_lmax96": ("banded_myers", lambda s: s == (4 * BATCH, 2 * BATCH),
                             "configs_len76_step2"),
     # Phase 11's unsharded map at the command line's defaults: B = 10,000,
-    # cap_occ 256 + cap_cand 256, 16 verify slots a read-strand lane.
+    # cap_occ 256 (derived from its index) + cap_cand 256, 16 verify slots a
+    # read-strand lane.
     "filter_tail_scale": ("filter_tail", lambda s: s == SCALE_TAIL, "scale"),
     "banded_myers_scale": ("banded_myers",
                            lambda s: s == (SCALE_VERIFY_SLOTS, 2 * SCALE_BATCH), "scale"),
@@ -312,6 +328,13 @@ ROW_LAUNCHES = {
                              "scale_grid"),
     # Phase 10's e=7 a=2 150 bp tier 0: ten seed runs a group.
     "occ_slab_e7_len150": ("occ_slab", lambda s: s == (80, 2 * BATCH), "configs_e7_len150"),
+    # Phase 12's tier 0 at the width the 3.0 Gb index derives: the first
+    # batch's slab, filter tail (the block route) and Myers.
+    "occ_slab_grch38": ("occ_slab", lambda s: s == (GRCH38_TAIL[0], 2 * SCALE_BATCH),
+                        "grch38"),
+    "filter_tail_grch38": ("filter_tail", lambda s: s == GRCH38_TAIL, "grch38"),
+    "banded_myers_grch38": ("banded_myers",
+                            lambda s: s == (SCALE_VERIFY_SLOTS, 2 * SCALE_BATCH), "grch38"),
 }
 # Where each kernel's launches by shape lie in a run's record.
 SHAPES_KEY = {"filter_tail": "tail_shapes", "banded_myers": "myers_shapes",
@@ -382,30 +405,33 @@ def single_ms(fn, reps: int) -> float:
 
 def profiler_ms(fn, kernel: str, reps: int = 20) -> float:
     """Mean device time of the CUDA kernel whose name contains `kernel`,
-    from torch.profiler over reps + 11 calls of fn(), the first finished
-    before the others start. The trace can lose the launches made while it
-    starts (more of them the shorter the kernel), so at least `reps` must
-    be in it; a trace that lost more is taken again, three times at most."""
+    over the last `reps` of its launches in one torch.profiler trace. The
+    tracer can lose the launches made while it starts (as many as 31 calls
+    of a trace on an H100), so inside the trace fn() first runs one
+    call at a time for 50 ms, then `reps` calls back to back; the
+    mean reads the last `reps` launches the trace holds, which are those
+    back-to-back calls. A trace that holds fewer is taken again, three
+    times at most."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     for attempt in range(3):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()  # a first launch inside the trace, finished before the timed ones
-            torch.cuda.synchronize()
-            for _ in range(reps + 10):
+            settle = time.perf_counter() + 0.05
+            while time.perf_counter() < settle:
+                fn()
+                torch.cuda.synchronize()
+            for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        total = count = 0
-        for ev in prof.key_averages():
-            if kernel in ev.key:
-                total += getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
-                count += ev.count
-        if reps <= count <= reps + 11 and total > 0:
-            return total / count / 1e3
-        log(f"[profiler] saw {kernel} {count} times in {reps + 11} calls, {total} us "
-            f"(attempt {attempt + 1})")
+        seen = sorted((ev for ev in prof.events() if kernel in ev.name),
+                      key=lambda ev: ev.time_range.start)
+        total = sum(ev.device_time_total for ev in seen[-reps:])
+        if len(seen) >= reps and total > 0:
+            return total / reps / 1e3
+        log(f"[profiler] saw {kernel} {len(seen)} times, {reps} wanted after 50 ms "
+            f"of single calls, {total} us (attempt {attempt + 1})")
     raise RuntimeError(f"torch.profiler lost launches of {kernel} in three traces")
 
 
@@ -2185,10 +2211,11 @@ def phase_scale(workdir: str) -> tuple[dict, list]:
             ("scale_grid", EngineConfig(index_mesh=make_index_mesh(["cuda:0"] * 4, 4)),
              SCALE_VERIFY_SLOTS // 4)):
         c = config
-        check((c.batch_size, c.cap_occ, c.cap_cand, 2 * c.batch_size * c.verify_per_read)
+        engine = MappingEngine(args, ref, index, config)
+        check((c.batch_size, engine.tier0_cap_occ, c.cap_cand,
+               2 * c.batch_size * c.verify_per_read)
               == (SCALE_BATCH, *SCALE_TAIL, SCALE_VERIFY_SLOTS),
               f"{tag}: the command line's defaults are not the rows' shapes")
-        engine = MappingEngine(args, ref, index, config)
         suffix = "" if tag == "scale" else "_shard"
         got, captured = scale_rows(tag, engine, batch, {
             f"filter_tail_scale{suffix}": ("filter_tail_tier0", is_tail),
@@ -2205,6 +2232,39 @@ def phase_scale(workdir: str) -> tuple[dict, list]:
     log(f"[scale] phase 11: {time.perf_counter() - t_phase:.1f} s (the tool "
         f"{summary['seconds']:.1f} s)")
     return runs, rows
+
+
+def phase_grch38() -> tuple[dict, list]:
+    """Phase 12: tools/torch_scale_rows.py as a process of its own (the
+    GRCh38 profile at 3.0 Gb, its first batch mapped once with the eager
+    step): its tier-0 rows, at the cap_occ the engine derives from that
+    index, each equal to its plain version, become kernel-table rows whose
+    launches are the batch's count at the row's shape (path "grch38")."""
+    t_phase = time.perf_counter()
+    p = subprocess.run([sys.executable, os.path.join(REPO, "tools", "torch_scale_rows.py")],
+                       env=_child_env(), capture_output=True, text=True, timeout=900)
+    out = p.stdout.strip().splitlines()
+    for line in out[:-1]:
+        log(line if line.startswith("[rows]") else f"[grch38] {line}")
+    check(p.returncode == 0 and out, f"torch_scale_rows failed (rc {p.returncode}): "
+          f"{p.stdout[-3000:]}{p.stderr[-3000:]}")
+    summary = json.loads(out[-1])
+    check(summary["tier0_cap_occ"] == GRCH38_TAIL[0],
+          f"grch38: tier 0 derived cap_occ {summary['tier0_cap_occ']}, not {GRCH38_TAIL[0]}")
+    rows = []
+    for row in summary["rows"]:
+        check(row["max_abs_err"] == 0, f"grch38: {row['name']} differs from its plain version")
+        if row["name"] in GRCH38_ROWS:
+            rows.append(dict(row, name=GRCH38_ROWS[row["name"]]))
+    check({r["name"] for r in rows} == set(GRCH38_ROWS.values()),
+          f"grch38: tier-0 rows {sorted(r['name'] for r in rows)} only")
+    shapes = summary["launches_by_shape"]
+    run = {key: {tuple(int(x) for x in k.split("x")): n for k, n in shapes.get(kernel, {}).items()}
+           for kernel, key in SHAPES_KEY.items()}
+    log(f"[grch38] phase 12: {time.perf_counter() - t_phase:.1f} s (the tool "
+        f"{summary['seconds']:.1f} s), {summary['retried']} of {summary['reads_in_batch']} "
+        f"reads retried over {summary['tier_dispatches']} tier dispatches")
+    return {"grch38": run}, rows
 
 
 def main() -> int:
@@ -2276,7 +2336,9 @@ def main() -> int:
         del benign_seqs
         scale_runs, scale_table = phase_scale(workdir)
         lap("phase 11")
-    rows += grid_rows + sweep_rows + scale_table
+    grch38_runs, grch38_rows = phase_grch38()
+    lap("phase 12")
+    rows += grid_rows + sweep_rows + scale_table + grch38_rows
     check(adversarial["retried"] > 0, "adversarial: no read was retried")
     check(any(cap + cc > 512 for cap, cc in adversarial["tail_shapes"]),
           "adversarial: filter_tail never launched above cap_cand + cap_occ = 512")
@@ -2289,7 +2351,8 @@ def main() -> int:
     # A row of phase 10 is read on its configuration's counted run only: the
     # shape of a count names no Lmax, e or a.
     runs = {"benign": benign, "adversarial": adversarial, **grid_runs}
-    paths = {**runs, **{f"configs_{n}": r for n, r in sweep_runs.items()}, **scale_runs}
+    paths = {**runs, **{f"configs_{n}": r for n, r in sweep_runs.items()}, **scale_runs,
+             **grch38_runs}
     check({r["name"] for r in rows} == set(ROW_LAUNCHES), "a row without a launch count")
     for row in rows:
         kernel, at_shape, path = ROW_LAUNCHES[row["name"]]

@@ -41,6 +41,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import math
 import os
 import threading
 import time
@@ -68,6 +69,10 @@ from fem_tpu_torch.utils.metrics import span
 # map_core's stages in order, as named to a StageTimer.
 STAGES = ("hash", "candidates", "verify_slab", "verify", "accept")
 
+# Tier 0's occurrence slots a (read, strand, group) where the index is
+# light, and the width the default ladder above it is derived from.
+BASE_CAP_OCC = 256
+
 
 @dataclasses.dataclass(frozen=True)
 class TierConfig:
@@ -90,7 +95,8 @@ class TierConfig:
 @dataclasses.dataclass
 class EngineConfig:
     batch_size: int = 10000  # reads per device batch (src/FEM_map.c:151)
-    cap_occ: int = 256  # occurrence slots per (read, strand, group)
+    cap_occ: int | None = None  # occurrence slots per (read, strand, group);
+    # None = derived from the index's bucket occupancy (tier0_cap_occ)
     cap_cand: int = 256  # candidates carried per (read, strand)
     verify_per_read: float = 16  # verify slots per read-strand lane (avg)
     accept_per_read: float = 4  # accepted-hit slots per read (avg)
@@ -132,6 +138,32 @@ def engine_config_from_jax(fields: dict, device: torch.device | str = "cuda") ->
         n_dp, n_ip = shape(kept["index_mesh"])
         kept["index_mesh"] = make_index_mesh([device] * (n_dp * n_ip), n_ip)
     return EngineConfig(**kept)
+
+
+def tier0_cap_occ(occurrences: int, kmer_size: int, num_qgrams: int,
+                  ceiling: int | None = None) -> int:
+    """Tier 0's occurrence slots a (read, strand, group) for an index of
+    `occurrences` k-mers (a coordinate-sharded grid: its largest cell's)
+    and S = `num_qgrams` seeds a group.
+
+    A group's slot demand is the sum over its S seeds of each seed's run
+    rounded out to whole 8-slot rows (ops/occ_slab.py). At lam = occurrences
+    / 4^k a bucket, a seed takes lam + 8 slots on average, and the rows'
+    rounding adds to the spread: S (lam + 8) + 4.5 sqrt(S (lam + 11)),
+    rounded up to 64 slots, leaves about 1e-5 of reads over where buckets
+    are near-Poisson (the benchmark's synthetic 3.0 Gb genome: none of its
+    reads over at 576). A real genome's buckets are heavy-tailed, so lam
+    is a mean that repeats push up while the seed DP picks rarer seeds;
+    reads over the cap go up the exact ladder either way. Never below
+    BASE_CAP_OCC, which every light index keeps (chr21 at e=5 asks 104),
+    and above it never past `ceiling`, tier 1's cap_occ, so that a group
+    tier 0 cannot hold still has a bigger rung."""
+    lam = occurrences / 4**kmer_size
+    demand = num_qgrams * (lam + 8) + 4.5 * math.sqrt(num_qgrams * (lam + 11))
+    cap = -(-math.ceil(demand) // 64) * 64
+    if ceiling is not None:
+        cap = min(cap, ceiling)
+    return max(BASE_CAP_OCC, cap)
 
 
 def _scatter(size: int, slot: torch.Tensor, ok: torch.Tensor, values: torch.Tensor):
@@ -729,9 +761,10 @@ class MappingEngine:
         self._stream = self._streams.get(self.device)
         self._cell_index: dict = {}  # (d, i) -> DeviceIndex of a grid's cell
         if self.config.index_mesh is not None:
-            self._init_sharded_index(index)
+            occurrences = self._init_sharded_index(index)
             self.dindex = None
         else:
+            occurrences = index.num_occurrences
             self.dindex = device_index_from_host(index, reference, self.device)
             if self.grid is not None:  # the whole index once per device
                 on = {self.device: self.dindex}
@@ -748,6 +781,11 @@ class MappingEngine:
             self.tiers = self._default_tiers()
         else:
             self.tiers = tuple(self.config.tiers)
+        # Tier 0's cap_occ: the config's, or derived from the index once.
+        self.tier0_cap_occ = self.config.cap_occ
+        if self.tier0_cap_occ is None:
+            self.tier0_cap_occ = tier0_cap_occ(occurrences, args.kmer_size, args.num_qgrams,
+                                               self.tiers[0].cap_occ if self.tiers else None)
         self.retried_reads = 0  # reads mapped again at tier >= 1
         self.tier_dispatches = 0  # device steps at tier >= 1: the retry tax
         # a heavy-tailed genome pays (the reference's unbounded merge pays
@@ -780,6 +818,8 @@ class MappingEngine:
         grid cell's index (occurrences, reference bytes, bytes in all)."""
         cells = {(0, 0): self.dindex} if self.dindex is not None else self._cell_index
         return {
+            "tier0_cap_occ": self.tier0_cap_occ,
+            "tier0_cap_occ_derived": self.config.cap_occ is None,
             "retried_reads": self.retried_reads,
             "tier_dispatches": self.tier_dispatches,
             "dispatches_by_tier": {str(t): n for t, n in sorted(self.dispatches_by_tier.items())},
@@ -792,8 +832,10 @@ class MappingEngine:
                       for key, ix in sorted(cells.items())],
         }
 
-    def _init_sharded_index(self, index: FemIndex) -> None:
-        """Each cell's shard on its device, once per (device, shard)."""
+    def _init_sharded_index(self, index: FemIndex) -> int:
+        """Each cell's shard on its device, once per (device, shard).
+        Returns the largest shard's occurrences (every process sees every
+        shard's)."""
         from fem_tpu_torch.parallel.sharded_index import build_sharded_index
 
         _, n_ip = self._mesh_shape()
@@ -804,6 +846,7 @@ class MappingEngine:
             if (dev, i) not in on:
                 on[dev, i] = sh.device_index(i, dev)
             self._cell_index[d, i] = on[dev, i]
+        return max(len(o) for o in sh.occ)
 
     def _mesh_shape(self) -> Tuple[int, int]:
         """(data shards, index shards)."""
@@ -813,13 +856,15 @@ class MappingEngine:
     def _default_tiers(self) -> tuple:
         """The retry ladder above tier 0 when the config names none: about
         8x the caps at a batch of at most 512, then a 64-read heavy-tail
-        tier.
+        tier. A cap_occ left to the index counts as BASE_CAP_OCC here, so
+        the ladder keeps its shapes whatever tier 0 derives.
 
         FEM_TPU_TIERS overrides it: "none" for no ladder, or
         semicolon-separated rungs of
         "batch:cap_occ:cap_cand:verify_per_read:accept_per_read", the
         tuning knob for heavy-tailed genomes where the retry tax dominates."""
         c = self.config
+        cap_occ = BASE_CAP_OCC if c.cap_occ is None else c.cap_occ
         n_dp, _ = self._mesh_shape()
 
         def align(b):  # batch must split evenly over the data axis
@@ -852,7 +897,7 @@ class MappingEngine:
 
         t1 = TierConfig(
             batch_size=align(min(c.batch_size, 512)),
-            cap_occ=cap8(max(8 * c.cap_occ, 512)),
+            cap_occ=cap8(max(8 * cap_occ, 512)),
             cap_cand=cap8(max(8 * c.cap_cand, 512)),
             verify_per_read=max(int(4 * c.verify_per_read), 32),
             accept_per_read=max(int(4 * c.accept_per_read), 16),
@@ -870,7 +915,7 @@ class MappingEngine:
         if tier == 0:
             c = self.config
             return TierConfig(
-                batch_size=c.batch_size, cap_occ=c.cap_occ, cap_cand=c.cap_cand,
+                batch_size=c.batch_size, cap_occ=self.tier0_cap_occ, cap_cand=c.cap_cand,
                 verify_per_read=c.verify_per_read, accept_per_read=c.accept_per_read,
             )
         return self.tiers[tier - 1]

@@ -14,7 +14,8 @@ of --gb gigabases (3.0 by default) is indexed and mapped:
               the occurrence count is printed (999,999,915 at 3.0 Gb, two
               under the u32 CSR guard);
   map         `python -m fem_tpu_torch map -e 5 -a 1` with the command
-              line's defaults (B=10,000, cap_occ 256, cap_cand 256, verify
+              line's defaults (B=10,000, tier 0's cap_occ derived from the
+              index: 576 at 3.0 Gb, 256 at 0.25 Gb; cap_cand 256, verify
               16 and accept 4 slots a read, the default ladder) on one
               device (the first card alone), unsharded; its SAM record multiset and five counters
               against `fem_baseline map -e 5 -a 1` on the same reads (once a

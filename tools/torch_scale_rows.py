@@ -7,13 +7,14 @@ tools/torch_grch38_scale.py's genome at --gb gigabases (its profile, seed
 FASTA and the first batch's FASTQ are written to --workdir, the index is
 built in this process (index.build.build_index, the bytes `python -m
 fem_tpu_torch index 12 3` writes), and the first batch is mapped once with
-the command line's defaults (B = 10,000, cap_occ 256 + cap_cand 256, the
-default ladder) through the eager step. The first filter-tail and
-banded-Myers call of each tier the batch reaches is held against its plain
-version (exactly equal) and timed as chip_smoke.py times a kernel-table
-row, with its bound: at 3.0 Gb a 12-mer bucket holds ~60 occurrences and
-every read of the batch retries at tier 1 (2048 + 2048 over 1,024 lanes,
-Myers at 65,536 slots). One line a row and the card's name and power
+the command line's defaults (B = 10,000, tier 0's cap_occ derived from the
+index + cap_cand 256, the default ladder) through the eager step. The
+first occurrence-slab, filter-tail and banded-Myers call of each tier the
+batch reaches is held against its plain version (exactly equal) and timed
+as chip_smoke.py times a kernel-table row, with its bound: at 3.0 Gb a
+12-mer bucket holds ~60 occurrences, so tier 0 derives cap_occ 576 (the
+filter tail at 576 + 256 over 20,000 lanes takes the block route) and few
+reads retry at tier 1 (2048 + 2048 over 1,024 lanes). One line a row and the card's name and power
 limit; the last line is a JSON object of the rows and of the kernels'
 launches by shape in the batch's map, with this process's peak host RSS
 and the card's peak memory. Disk: the FASTA.
@@ -88,9 +89,13 @@ def main(argv: list | None = None) -> int:
         engine = MappingEngine(FemArgs(error_threshold=tool.E, num_additional_qgrams=tool.A),
                                ref, index, config)
         tests, shapes = {}, {}
-        for tier, tc in enumerate((config, *engine.tiers)):
+        for tier, tc in enumerate((engine._tier(0), *engine.tiers)):
             tail = (tc.cap_occ, tc.cap_cand)
             myers = (int(2 * tc.batch_size * tc.verify_per_read), 2 * tc.batch_size)
+            occ = (tc.cap_occ, 2 * tc.batch_size)
+            tests[f"occ_slab_tier{tier}"] = lambda attr, args, occ=occ: (
+                attr == "occ_slab" and (args[5], args[0].shape[0]) == occ)
+            shapes[f"occ_slab_tier{tier}"] = ("occ_slab", occ)
             tests[f"filter_tail_tier{tier}"] = lambda attr, args, tail=tail: (
                 attr == "filter_tail" and (args[0].shape[2], args[2]) == tail)
             tests[f"banded_myers_tier{tier}"] = lambda attr, args, myers=myers: (
@@ -110,7 +115,8 @@ def main(argv: list | None = None) -> int:
               f"tier dispatches, {engine.fallback_reads} host-mapped; launches by shape "
               f"{ {k: dict(v) for k, v in by_shape.items()} }; the tiers' calls held: "
               f"{sorted(probe.captured)}", flush=True)
-        cs.check(set(probe.captured) >= {"filter_tail_tier0", "banded_myers_tier0"},
+        cs.check(set(probe.captured) >= {"filter_tail_tier0", "banded_myers_tier0",
+                                         "occ_slab_tier0"},
                  "the batch's tier-0 calls were not seen")
         table = []
         for row in tests:
@@ -122,6 +128,7 @@ def main(argv: list | None = None) -> int:
             res["launches_in_batch"] = by_shape[kernel].get(shape, 0)
             table.append(res)
         out = {"device": card, "gb": a.gb, "reads_in_batch": stats.num_reads,
+               "tier0_cap_occ": engine.tier0_cap_occ,
                "retried": engine.retried_reads, "tier_dispatches": engine.tier_dispatches,
                "launches_by_shape": {k: {"x".join(map(str, sh)): n for sh, n in v.items()}
                                      for k, v in by_shape.items()},
