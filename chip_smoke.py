@@ -68,10 +68,9 @@ exits non-zero without its result line:
               point is then mapped again for its steady rates, once under
               torch.profiler for the device's busy and idle share of the
               wall (printed only if the trace holds the replays' kernels),
-              and once with the eager step (engine.eager_step) and a
-              StageTimer: its per-stage device times and its submit_batch
-              times beside the graphs'; every such run must give the
-              counted run's records. Last, the benign reads go once
+              and once with the eager step (engine.eager_step): its
+              submit_batch times beside the graphs'; every such run must
+              give the counted run's records. Last, the benign reads go once
               through an engine without a ladder (tiers=()), read from
               the FASTQ file by a ThreadedBatchSource: its overflow reads
               must reach the host mapper and its records must be the
@@ -1025,7 +1024,7 @@ class Probe:
 
     def __init__(self, engine):
         from fem_tpu_torch.ops import candidates as candidates_mod
-        from fem_tpu_torch.pipeline import engine as engine_mod
+        from fem_tpu_torch.ops import step as step_mod
 
         self._lock = threading.Lock()
         self.capture: dict = {}
@@ -1035,7 +1034,7 @@ class Probe:
         self._wrap(candidates_mod, "filter_tail")
         self._wrap(candidates_mod, "occ_slab")
         self._wrap(candidates_mod, "occ_bound")
-        self._wrap(engine_mod, "verify_candidates")
+        self._wrap(step_mod, "verify_candidates")
         self._time(engine, "_emit_native", lambda a, k, dt: self._emitted(dt))
         self._time(engine, "submit_batch", self._submitted)
 
@@ -1179,7 +1178,7 @@ def phase_main(tag: str, ref, index, paths, config, dev, turns: tuple,
     from fem_tpu_torch import kernels
     from fem_tpu_torch.config import FemArgs
     from fem_tpu_torch.io import fastx
-    from fem_tpu_torch.pipeline.engine import MappingEngine, StageTimer
+    from fem_tpu_torch.pipeline.engine import MappingEngine
 
     args = FemArgs(kmer_size=KMER, step_size=STEP, error_threshold=E,
                    num_additional_qgrams=A)
@@ -1191,7 +1190,8 @@ def phase_main(tag: str, ref, index, paths, config, dev, turns: tuple,
           f"{tag}: the default ladder is not the one the kernel rows were timed at")
     batches = list(fastx.stream_fastq_batches(paths["fq"], batch_size=BATCH))
     t1, t2 = engine.tiers
-    log(f"[main] {tag}: device index {engine.dindex.nbytes() / 2**30:.3f} GiB on {dev}; "
+    (cell,) = engine.report()["cells"]
+    log(f"[main] {tag}: device index {cell['nbytes'] / 2**30:.3f} GiB on {dev}; "
         f"pipeline depth {config.pipeline_depth}; tier 1 {t1.batch_size} reads at "
         f"{t1.cap_occ} + {t1.cap_cand}, tier 2 {t2.batch_size} reads at "
         f"{t2.cap_occ} + {t2.cap_cand}")
@@ -1234,22 +1234,15 @@ def phase_main(tag: str, ref, index, paths, config, dev, turns: tuple,
     _profiled_run(tag, engine, probe, batches, run["digest"])
 
     # The eager step (engine.eager_step, the counterpart of
-    # jax.disable_jit()): the StageTimer's per-stage events lie inside the
-    # step, so it times the eager path; its submit times and rate are the
-    # graphs' baseline in this call.
+    # jax.disable_jit()): its submit times and rate are the graphs'
+    # baseline in this call.
     engine.eager_step = True
-    engine.stage_timer = StageTimer(torch.device(dev))
     eager = run_engine(engine, probe, batches, "stream")
-    timer, engine.stage_timer = engine.stage_timer, None
     engine.eager_step = False
     check(eager["digest"] == run["digest"] and eager["stats"] == run["stats"],
           f"{tag}: the eager step gave other records or counters")
-    _log_run(tag, "steady, pipelined stream with the eager step (StageTimer on)", eager)
+    _log_run(tag, "steady, pipelined stream with the eager step", eager)
     _log_submits(tag, "eager step", eager)
-    for tier, ms in timer.ms.items():
-        log(f"[main] {tag}: device stage ms over {timer.batches[tier]} "
-            f"{'tier-0' if tier == 0 else 'retry-tier'} batches (eager step): "
-            f"{ {k: round(v, 3) for k, v in ms.items()} }")
     run["eager_reads_per_s"] = eager["reads_per_s"]
 
     # The kernels' inputs, for phase 6: the stream is mapped once more,
@@ -1289,8 +1282,8 @@ def sync_free_dispatch(tag: str, engine, batch) -> None:
 
 
 def check_graphs(tag: str, engine, dispatches: int) -> dict:
-    """Every step program of the engine (StepPrograms on one device,
-    GridPrograms on a grid) captured, each cell's every segment, and their
+    """Every step program of the engine (a GridProgram a (tier, Lmax), one
+    cell on one device) captured, each cell's every segment, and their
     dispatches in the run just made (each key's eager first one and the
     replays) adding up to `dispatches`: every dispatch after a key's first
     replayed its graphs. One line names the keys, each cell's capture

@@ -7,7 +7,8 @@ here a `DeviceMesh` is a numpy grid of `torch.device`s with axis names:
 `(n_dp,)` over ("data",), where reads split over the data axis and every
 device holds the whole index, or `(n_dp, n_ip)` over ("data", "index"),
 where the index is also split by reference coordinate
-(parallel/sharded_index.py). A grid may name one card more than once.
+(parallel/sharded_index.py). A grid may name one card more than once,
+and one device alone is a data grid of one cell.
 
 A `GridStep` runs `map_core_steps` for every cell of the grid this
 process holds, in lockstep, cut into segments at the points where the
@@ -32,7 +33,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from fem_tpu_torch.pipeline.engine import map_core_steps, unpack_input
+from fem_tpu_torch.ops.step import map_core_steps, unpack_input
 
 DATA_AXIS = "data"
 INDEX_AXIS = "index"
@@ -224,10 +225,10 @@ class GridStep:
     Bloc to (d + 1) * Bloc of the padded batch) against its shard; the
     cells go in lockstep, cut into segments at the points where a row's
     cells meet (`advance`), reduced between them by a GridReducer. With
-    `globalize_lanes`, a cell's accepted lanes are renumbered over the
-    whole batch (fem_tpu/parallel/mesh.py:61-66): strand * (n_dp * Bloc) +
-    d * Bloc + (l - strand * Bloc); otherwise they stay row-local, in
-    [0, 2 * Bloc)."""
+    `globalize_lanes` and more than one data row, a cell's accepted lanes
+    are renumbered over the whole batch (fem_tpu/parallel/mesh.py:61-66):
+    strand * (n_dp * Bloc) + d * Bloc + (l - strand * Bloc); otherwise they
+    stay row-local, in [0, 2 * Bloc), which on one row is the same."""
 
     def __init__(self, mesh: DeviceMesh, params, verify_cap: int, accept_cap: int,
                  globalize_lanes: bool):
@@ -244,8 +245,9 @@ class GridStep:
         codes, lengths = unpack_input(packed)
         out = yield from map_core_steps(index, codes, lengths, self.params,
                                         self.verify_cap, self.accept_cap)
-        if self.globalize_lanes:
-            Bloc, n_dp = codes.shape[0], self.mesh.grid.shape[0]
+        n_dp = self.mesh.grid.shape[0]
+        if self.globalize_lanes and n_dp > 1:
+            Bloc = codes.shape[0]
             lane = out["a_lane"]
             strand = (lane >= Bloc).to(lane.dtype)
             out["a_lane"] = strand * (n_dp * Bloc) + d * Bloc + (lane - strand * Bloc)

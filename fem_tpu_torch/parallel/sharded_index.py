@@ -12,11 +12,11 @@ ranges and its left-halo starts. Beside them the GLOBAL frequency table,
 occurrence count and chromosome lengths: the optimal-prefix q-gram DP and
 the frequency sort are decisions over the whole genome. The only
 cross-shard communication of a step is the truncation bound's max and the
-per-read sums and maxes (pipeline/engine.py:map_core_steps), because the
+per-read sums and maxes (ops/step.py:map_core_steps), because the
 pigeonhole vote and the greedy dedup never cross a chromosome boundary.
 
 Results come back per (data, index) cell; the host's stable sort by lane
-(pipeline/engine.py:accepted_hits) restores the reference's per-read
+(ops/step.py:accepted_hits) restores the reference's per-read
 candidate order, because shards hold ascending coordinate ranges.
 """
 

@@ -2,9 +2,9 @@
 device or on a grid of them (parallel/).
 
 Reads are batched; both strands go through one device step (hash ->
-q-gram DP -> candidate filter -> banded Myers), and the small set of
-accepted hits comes back to the host in one copy for traceback and SAM
-emission by the native emitter (native/). The device step has fixed
+q-gram DP -> candidate filter -> banded Myers, ops/step.py), and the small
+set of accepted hits comes back to the host in one copy for traceback and
+SAM emission by the native emitter (native/). The device step has fixed
 capacities (occurrence slab, candidate list, verify and accept slots). A
 read that exceeds one is mapped again on the next rung of the
 capacity-retry ladder (`TierConfig`: a smaller batch with bigger
@@ -12,29 +12,26 @@ capacities), and past the last rung by the exact host mapper; a read that
 hits an inherent limit (incomplete DP) goes to the host mapper at once.
 So the ALL-mappings guarantee survives fixed capacities.
 
-On one device the step runs as a `StepProgram` per (tier, Lmax), the
-counterpart of fem_tpu's one `jax.jit` program per shape: every batch is
-padded to its tier's batch size and goes up as one packed buffer, and on
-a card the step is one replay of a CUDA graph captured at the key's first
+The engine always runs on a grid: `EngineConfig.mesh` splits reads over a
+data axis, `.index_mesh` also splits the index by coordinate over an index
+axis, and with neither the one device is a grid of one cell. The step runs
+as a `GridProgram` per (tier, Lmax), the counterpart of fem_tpu's one
+jitted program per shape: every batch is padded to its tier's batch size
+and split evenly over the data rows; each cell maps its row's reads
+against its shard and packs a segment of its own, and on a card each
+cell's step is a CUDA graph a segment between the reductions of its data
+row (one segment where the row is one cell), captured at the key's first
 dispatch. `map_stream` keeps `depth` batches in flight: the device step of
-every batch runs on the engine's one CUDA stream and ends in a
-non-blocking copy of the packed result into pinned host memory, followed
-by a recorded event; drain threads wait on that event only, then emit. In
-the unordered stream capacity-overflow reads gather in a retry pool and go
-out again as pipelined tier-1 batches; `watermark_reads` is the longest
-stream prefix whose records the consumer has had, retries included.
-
-On a grid (`EngineConfig.mesh`: reads over a data axis; `.index_mesh`:
-also the index split by coordinate over an index axis) the step runs as a
-`GridProgram` per (tier, Lmax), the counterpart of fem_tpu's jitted
-sharded program: every batch is padded to its tier's batch size and split
-evenly over the data rows; each cell maps its row's reads against its
-shard and packs a segment of its own, and on a card each cell's step is a
-CUDA graph a segment between the reductions of its data row. The drain
-reads every segment. A grid that spans processes (parallel/multihost.py)
-joins each data row's cells over torch.distributed; its drains then run
-on the consumer thread, in stream order, because every process must issue
-the same collectives in the same order.
+every batch runs on the engine's CUDA streams and ends in a non-blocking
+copy of the packed segments into pinned host memory, followed by a
+recorded event a stream; drain threads wait on those events only, then
+emit. In the unordered stream capacity-overflow reads gather in a retry
+pool and go out again as pipelined tier-1 batches; `watermark_reads` is
+the longest stream prefix whose records the consumer has had, retries
+included. A grid that spans processes (parallel/multihost.py) joins each
+data row's cells over torch.distributed; its drains then run on the
+consumer thread, in stream order, because every process must issue the
+same collectives in the same order.
 """
 
 from __future__ import annotations
@@ -59,15 +56,13 @@ from fem_tpu_torch.core.encoding import encode
 from fem_tpu_torch.index.storage import FemIndex
 from fem_tpu_torch.io.fastx import ReadBatch, Reference
 from fem_tpu_torch.native import NativeCpuMapper, NativeEmitter
-from fem_tpu_torch.ops.candidates import candidates_back, candidates_front
-from fem_tpu_torch.ops.hashing import ambiguous_base_counts, reverse_complement, seed_hashes
-from fem_tpu_torch.ops.types import DeviceIndex, FilterParams, device_index_from_host
-from fem_tpu_torch.ops.verify import verify_candidates
+from fem_tpu_torch.ops.step import accepted_hits, pack_input, pack_result, unpack_result
+from fem_tpu_torch.ops.types import FilterParams, device_index_from_host
+from fem_tpu_torch.parallel.mesh import make_mesh, make_sharded_map_fn, static_like, streams_of
+from fem_tpu_torch.parallel.multihost import allgather_bitmaps, gather_rows
+from fem_tpu_torch.parallel.sharded_index import build_sharded_index, make_index_sharded_map_fn
 from fem_tpu_torch.stats import MappingStats
 from fem_tpu_torch.utils.metrics import span
-
-# map_core's stages in order, as named to a StageTimer.
-STAGES = ("hash", "candidates", "verify_slab", "verify", "accept")
 
 # Tier 0's occurrence slots a (read, strand, group) where the index is
 # light, and the width the default ladder above it is derived from.
@@ -110,36 +105,6 @@ class EngineConfig:
     # index also split by reference coordinate (parallel/sharded_index.py)
 
 
-def engine_config_from_jax(fields: dict, device: torch.device | str = "cuda") -> EngineConfig:
-    """The port's EngineConfig from a fem_tpu EngineConfig given as plain
-    values (`dataclasses.asdict`, or the fields as they are), its
-    TierConfigs included. A JAX mesh (`mesh`, `index_mesh`, or its shape)
-    comes across as a grid of the same shape, (n_dp,) or (n_dp, n_ip),
-    whose every entry is `device`. The fields the port does not have
-    (cap_vote, aggregate_fetch, use_pallas, serialize_dispatch) are dropped."""
-    from fem_tpu_torch.parallel.mesh import make_index_mesh, make_mesh
-
-    def keep(cls, d):
-        names = {f.name for f in dataclasses.fields(cls)}
-        return {k: v for k, v in d.items() if k in names}
-
-    def shape(m):  # a jax Mesh (its .shape maps axis -> size) or a shape
-        return tuple(m.shape.values()) if hasattr(m, "shape") else tuple(m)
-
-    kept = keep(EngineConfig, fields)
-    if kept.get("tiers") is not None:
-        kept["tiers"] = tuple(
-            TierConfig(**keep(TierConfig, t if isinstance(t, dict) else dataclasses.asdict(t)))
-            for t in kept["tiers"])
-    if kept.get("mesh") is not None:
-        (n,) = shape(kept["mesh"])
-        kept["mesh"] = make_mesh([device] * n)
-    if kept.get("index_mesh") is not None:
-        n_dp, n_ip = shape(kept["index_mesh"])
-        kept["index_mesh"] = make_index_mesh([device] * (n_dp * n_ip), n_ip)
-    return EngineConfig(**kept)
-
-
 def tier0_cap_occ(occurrences: int, kmer_size: int, num_qgrams: int,
                   ceiling: int | None = None) -> int:
     """Tier 0's occurrence slots a (read, strand, group) for an index of
@@ -166,368 +131,6 @@ def tier0_cap_occ(occurrences: int, kmer_size: int, num_qgrams: int,
     return max(BASE_CAP_OCC, cap)
 
 
-def _scatter(size: int, slot: torch.Tensor, ok: torch.Tensor, values: torch.Tensor):
-    """out[slot[i]] = values[i] where ok[i], into a zeroed (size,) tensor:
-    rejected entries go to one extra dump slot that is cut off (torch
-    raises on an out-of-bounds index where JAX drops the write)."""
-    out = torch.zeros(size + 1, dtype=values.dtype, device=values.device)
-    out.scatter_(0, torch.where(ok, slot, size), values)
-    return out[:size]
-
-
-def map_core(
-    index: DeviceIndex,
-    codes: torch.Tensor,  # (B, Lmax) uint8
-    lengths: torch.Tensor,  # (B,) int32
-    params: FilterParams,
-    verify_cap: int,
-    accept_cap: int = 4096,
-    mark=None,
-) -> dict:
-    """The per-batch mapping step, both strands, on a whole index. Returns
-    device tensors: the accepted hits compacted in slab order (lane-major,
-    ascending band start), the per-lane counters of fem_tpu's map_core, and
-    the per-read fallback bits and masked counter sums that fem_tpu's
-    pack_outputs derives. `mark(stage)`, when given, is called as each
-    stage ends."""
-    steps = map_core_steps(index, codes, lengths, params, verify_cap, accept_cap, mark)
-    value = None
-    while True:  # one cell: every reduction is the value itself
-        try:
-            _, value = steps.send(value)
-        except StopIteration as stop:
-            return stop.value
-
-
-def map_core_steps(
-    index: DeviceIndex,
-    codes: torch.Tensor,  # (B, Lmax) uint8
-    lengths: torch.Tensor,  # (B,) int32
-    params: FilterParams,
-    verify_cap: int,
-    accept_cap: int = 4096,
-    mark=None,
-):
-    """map_core as a generator, for one cell of a grid: at each point
-    where the cells of a data row meet it yields (op, value) and takes back
-    the reduced value (the caller's reduce hook:
-    parallel/mesh.py:GridReducer). An op is "max" or "sum" over the index
-    shards of the cell's data row; a point that carries several reductions
-    yields a tuple of ops and a tuple of values, one each. No device work
-    lies between the reductions of one point, so a grid cuts the step
-    there (parallel/mesh.py:GridStep). Returns map_core's dict.
-
-    The points (fem_tpu/parallel/sharded_index.py:302-319): the last-seed
-    truncation bound (a max, in the middle of generation); then the
-    per-read candidate counts (sum) with the fallback, inherent and retry
-    bits (max), so that a read that overflows any shard retries whole and
-    is counted by no shard. The fallback bits and the counter sums over the
-    kept reads come after them. `total_candidates` is the cell's own
-    verify-slab total: fem_tpu's sharded program sums it over the grid, and
-    no reader of either package reads it from a grid."""
-    mark = mark or (lambda stage: None)
-    e = params.error_threshold
-    B = codes.shape[0]
-    neg = reverse_complement(codes, lengths)
-    both = torch.cat([codes, neg])  # (2B, Lmax)
-    lens2 = torch.cat([lengths, lengths])
-    hashes = seed_hashes(both, params.kmer_size)
-    amb = ambiguous_base_counts(both, lens2, params.kmer_size)
-    mark("hash")
-    front = candidates_front(both, lens2, hashes, amb, index, params)
-    tkey = yield "max", front.tkey
-    cand = candidates_back(front, tkey, index, params)
-    mark("candidates")
-
-    # Compact valid candidates into the verify slab, lane-major and in
-    # ascending position: the emitter's mapping order relies on it.
-    NB, CC = cand.cand_valid.shape
-    flat_valid = cand.cand_valid.reshape(-1)
-    order = torch.cumsum(flat_valid, 0) - 1
-    total = flat_valid.sum()
-    to_slab = flat_valid & (order < verify_cap)
-    # Each slot's lane, without repeat_interleave (which may size its
-    # output with a host read, and a CUDA graph captures no host read).
-    lane_of = (torch.arange(NB * CC, device=codes.device) // CC).int()
-    v_lane = _scatter(verify_cap, order, to_slab, lane_of)
-    v_sid = _scatter(verify_cap, order, to_slab, cand.cand_sid.reshape(-1))
-    v_pos = _scatter(verify_cap, order, to_slab, cand.cand_pos.reshape(-1))
-    mark("verify_slab")
-    # Only the first `total` slots hold a candidate; the rest are skipped
-    # and come back not accepted.
-    vres = verify_candidates(index, v_sid, v_pos, v_lane, both, lens2, e, used=total)
-    mark("verify")
-    accepted = vres.accepted
-
-    acc_cap = max(accept_cap, 8)
-    a_order = torch.cumsum(accepted, 0) - 1
-    n_accepted = accepted.sum()
-    to_acc = accepted & (a_order < acc_cap)
-
-    def compact(x):
-        return _scatter(acc_cap, a_order, to_acc, x)
-
-    # A read is fully covered iff both lanes' candidate spans end within
-    # verify_cap and both lanes' accepted hits within acc_cap (the two
-    # truncations cut a prefix of lanes); the rest are mapped again exactly.
-    ok_v = torch.cumsum(cand.cand_valid.sum(dim=1), 0) <= verify_cap
-    acc_per_lane = torch.zeros(NB, dtype=torch.int64, device=codes.device)
-    acc_per_lane.index_add_(0, v_lane.long(), accepted.long())
-    ok_a = torch.cumsum(acc_per_lane, 0) <= acc_cap
-    ok_lane = ok_v & ok_a
-    retry = ~(ok_lane[:B] & ok_lane[B:])
-
-    num_candidates, (needs_fallback, inherent_fallback, retry) = yield ("sum", "max"), (
-        cand.num_candidates, (cand.needs_fallback, cand.inherent_fallback, retry))
-
-    # Per-read fallback bits and the counter sums over the other reads
-    # (fem_tpu pack_outputs); dp sums in int64, so no 16/16 split.
-    inherent = inherent_fallback[:B] | inherent_fallback[B:]
-    fb = needs_fallback[:B] | needs_fallback[B:] | retry | inherent
-    keep = ~torch.cat([fb, fb])
-    out = {
-        "slab_overflow": (total > verify_cap) | (n_accepted > acc_cap),
-        "retry": retry,
-        "a_lane": compact(v_lane),
-        "a_sid": compact(v_sid),
-        "a_pos": compact(v_pos),
-        "a_ed": compact(vres.edit_distance),
-        "a_end": compact(vres.end_offset),
-        "n_accepted": n_accepted,
-        "num_candidates": num_candidates,
-        "dp_total": cand.dp_total,
-        "needs_fallback": needs_fallback,
-        "inherent_fallback": inherent_fallback,
-        "total_candidates": total,
-        "fb": fb,
-        "inherent": inherent,
-        "sum_nc": (num_candidates.long() * keep).sum(),
-        "sum_dp": (cand.dp_total * keep).sum(),
-    }
-    mark("accept")
-    return out
-
-
-_HOST_FIELDS = ("a_lane", "a_sid", "a_pos", "a_ed", "a_end", "fb", "inherent")
-_HOST_SCALARS = ("n_accepted", "sum_nc", "sum_dp")
-
-
-def pack_result(out: dict) -> torch.Tensor:
-    """The fields the host needs as one int64 tensor, for one copy."""
-    parts = [torch.stack([out[k] for k in _HOST_SCALARS]).long()]
-    parts += [out[k].long() for k in _HOST_FIELDS]
-    return torch.cat(parts)
-
-
-def pack_input(codes: np.ndarray, lengths: np.ndarray, batch_size: int,
-               pin_memory: bool = False) -> torch.Tensor:
-    """One batch as its (batch_size, Lmax + 4) uint8 upload, fem_tpu's
-    `packed_in` (fem_tpu/pipeline/engine.py:759-768): a row holds a read's
-    codes, then its length as 4 little-endian bytes; the rows past the
-    batch's reads are empty reads (codes 4, length 0). With `pin_memory`
-    the rows are written straight into pinned host memory, from which the
-    upload goes without another copy."""
-    n, Lmax = codes.shape
-    if n > batch_size:
-        raise ValueError(f"{n} reads do not fit a batch of {batch_size}")
-    out = torch.empty((batch_size, Lmax + 4), dtype=torch.uint8, pin_memory=pin_memory)
-    packed = out.numpy()
-    packed[:n, :Lmax] = codes
-    packed[n:, :Lmax] = 4
-    packed[:, Lmax:] = 0
-    packed[:n, Lmax:] = np.asarray(lengths[:n], "<i4").view(np.uint8).reshape(n, 4)
-    return out
-
-
-def unpack_input(packed: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """`pack_input`'s (B, Lmax) codes (a view) and (B,) int32 lengths, on
-    the packed tensor's device."""
-    lb = packed[:, -4:].int()
-    lengths = lb[:, 0] | (lb[:, 1] << 8) | (lb[:, 2] << 16) | (lb[:, 3] << 24)
-    return packed[:, :-4], lengths
-
-
-def unpack_result(flat: np.ndarray, acc_cap: int, num_reads: int, nseg: int = 1) -> dict:
-    """`pack_result`'s layout on the host: `flat` holds `nseg` segments
-    (a grid's cells, data-row-major), each of `num_reads` reads. The header
-    values come back per segment, (nseg,); the hit fields and the per-read
-    bits concatenated over the segments, (nseg * acc_cap,) and
-    (nseg * num_reads,) bool."""
-    w = len(_HOST_SCALARS) + (len(_HOST_FIELDS) - 2) * acc_cap + 2 * num_reads
-    if flat.shape[0] != nseg * w:
-        raise ValueError(f"{flat.shape[0]} values are not {nseg} segments of {w}")
-    segs = flat.reshape(nseg, w)
-    host = {k: segs[:, j].copy() for j, k in enumerate(_HOST_SCALARS)}
-    o = len(_HOST_SCALARS)
-    for k in _HOST_FIELDS:
-        n = num_reads if k in ("fb", "inherent") else acc_cap
-        host[k] = segs[:, o : o + n].reshape(-1)
-        o += n
-    host["fb"] = host["fb"].astype(bool)
-    host["inherent"] = host["inherent"].astype(bool)
-    # Hits past the accept slots were dropped; their reads carry fb.
-    host["n_accepted"] = np.minimum(host["n_accepted"], acc_cap)
-    return host
-
-
-def accepted_hits(host: dict, acc_cap: int):
-    """The accepted hits of unpacked segments, each segment cut to its
-    count, stable-sorted by lane (fem_tpu/pipeline/engine.py
-    `_accepted_arrays`): on a grid the segments of one read come from
-    several cells, and stability keeps each lane's hits in the cells' order,
-    which is ascending reference order. Returns (lane, sid, pos, ed, end)."""
-    counts = host["n_accepted"]
-    keep = np.concatenate(
-        [np.arange(int(c)) + j * acc_cap for j, c in enumerate(counts)]).astype(np.int64)
-    cols = [host[k][keep] for k in ("a_lane", "a_sid", "a_pos", "a_ed", "a_end")]
-    if counts.shape[0] > 1:
-        order = np.argsort(cols[0], kind="stable")
-        cols = [c[order] for c in cols]
-    return tuple(cols)
-
-
-class StageTimer:
-    """CUDA-event times of map_core's stages, summed per stage in `ms`:
-    tier 0 under `ms[0]`, all retry tiers together under `ms[1]`. A batch's
-    events travel with it from `begin` to `collect`, so batches in flight
-    do not mix; retry batches submitted from drain threads share the
-    stream, so their kernels can fall between a tier-0 batch's events. A
-    graph's replay has no stage edges: it times the eager step
-    (`MappingEngine.eager_step`)."""
-
-    def __init__(self, device: torch.device):
-        self.device = device
-        self.ms = {t: {s: 0.0 for s in STAGES} for t in (0, 1)}
-        self.batches = {0: 0, 1: 0}
-        self._lock = threading.Lock()
-
-    def _record(self):
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record(torch.cuda.current_stream(self.device))
-        return ev
-
-    def begin(self) -> list:
-        """A new batch's event list, with its start recorded."""
-        return [("start", self._record())]
-
-    def mark(self, events: list, stage: str) -> None:
-        events.append((stage, self._record()))
-
-    def collect(self, events: list, tier: int) -> None:
-        """Add one finished batch's stage times."""
-        events[-1][1].synchronize()
-        key = min(tier, 1)
-        with self._lock:
-            self.batches[key] += 1
-            for (_, a), (stage, b) in zip(events, events[1:]):
-                self.ms[key][stage] += a.elapsed_time(b)
-
-
-class StepProgram:
-    """The device step at one (tier, Lmax): the port of fem_tpu's
-    `_make_device_fn` (fem_tpu/pipeline/engine.py:363-378), one per key
-    like its `_fn_for` (:703-707). Its body decodes the packed input
-    (`pack_input`), runs map_core and packs the result (`pack_result`).
-
-    On a card the body is captured once into a CUDA graph over a static
-    input and output, in a memory pool of its own. A dispatch copies the
-    packed batch into the input, replays the graph and copies the output
-    to fresh pinned host memory: three enqueues on the engine's stream,
-    under the program's lock so that dispatches from several threads do not
-    interleave. The first dispatch runs the body eagerly on the engine's
-    stream (the warm-up: the kernel library loads, the allocator fills, the
-    kernels launch and are counted as they are) and that is its result;
-    the capture follows, on a private stream, under the engine's capture
-    lock and in thread-local mode, so that drain threads waiting on their
-    events meanwhile do not break it. A capture or a replay that fails
-    raises: nothing falls back to the eager path. The capture runs every
-    wrapper once and launches nothing, so it records the launches
-    (`kernels.recording_launches`) and each replay adds them.
-
-    With `eager` (the engine's `eager_step`) and on the CPU, the body runs
-    eagerly at every dispatch, on the same padded, packed input."""
-
-    def __init__(self, key: tuple, index: DeviceIndex, params: FilterParams,
-                 verify_cap: int, accept_cap: int, device: torch.device,
-                 stream, capture_lock: threading.Lock):
-        self.key = key
-        self.index, self.params = index, params
-        self.verify_cap, self.accept_cap = verify_cap, accept_cap
-        self.device, self.stream, self._capture_lock = device, stream, capture_lock
-        self.lock = threading.Lock()
-        self.graph = None
-        self.static_in = self.static_out = None
-        self.launches = None  # Counter of (kernel, shape) a replay launches
-        self.capture_s = None  # seconds the capture took
-        self.pool_bytes = None  # device memory of the graph's pool, at its capture
-        self.dispatches = 0
-        self.replays = 0
-
-    def body(self, packed: torch.Tensor, mark=None) -> torch.Tensor:
-        codes, lengths = unpack_input(packed)
-        return pack_result(map_core(self.index, codes, lengths, self.params,
-                                    self.verify_cap, self.accept_cap, mark))
-
-    def run(self, packed: torch.Tensor, eager: bool = False, timer=None):
-        """Dispatch one packed batch (`pack_input`'s, in pinned memory on a
-        card) without waiting for it: (the result on the host, the events
-        a drain waits on, the StageTimer events)."""
-        with span("fem::step.dispatch"):
-            with self.lock:
-                self.dispatches += 1
-            if self.stream is None:  # the CPU
-                return self.body(packed), [], None
-            events = None
-            with self.lock, torch.cuda.stream(self.stream):
-                if eager or self.graph is None:
-                    inp = packed.to(self.device, non_blocking=True)
-                    if timer is not None:
-                        events = timer.begin()
-                    out = self.body(inp, (lambda st: timer.mark(events, st))
-                                    if timer is not None else None)
-                else:
-                    self.static_in.copy_(packed, non_blocking=True)
-                    self.graph.replay()
-                    self.replays += 1
-                    kernels.add_launches(self.launches)
-                    out = self.static_out
-                host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-                host.copy_(out, non_blocking=True)
-                ready = torch.cuda.Event()
-                ready.record(self.stream)
-                if self.graph is None and not eager:
-                    self._capture(inp)
-            return host, [ready], events
-
-    def _capture(self, static_in: torch.Tensor) -> None:
-        """Capture the body over `static_in` (the warm-up's input, which
-        the graph keeps)."""
-        with span("fem::step.capture"), self._capture_lock:
-            t0 = time.perf_counter()
-            side = torch.cuda.Stream(self.device)
-            graph = torch.cuda.CUDAGraph()
-            try:
-                with kernels.recording_launches() as rec, torch.cuda.graph(
-                        graph, stream=side, capture_error_mode="thread_local"):
-                    out = self.body(static_in)
-            except Exception as exc:
-                raise RuntimeError(
-                    f"CUDA graph capture of the step at (tier, Lmax) = {self.key} "
-                    f"failed: {exc}") from exc
-            self.capture_s = time.perf_counter() - t0
-            self.pool_bytes = _pool_bytes(graph.pool())
-        self.graph, self.static_in, self.static_out, self.launches = graph, static_in, out, rec
-
-    def describe(self) -> dict:
-        """GridProgram.describe's keys, for the one device as one cell."""
-        return {"key": list(self.key), "dispatches": self.dispatches, "replays": self.replays,
-                "cells": [{"cell": [0, 0], "device": str(self.device),
-                           "segments": int(self.graph is not None),
-                           "capture_s": self.capture_s,
-                           "graph_MiB": None if self.pool_bytes is None else self.pool_bytes / 2**20,
-                           "replays": self.replays}]}
-
-
 class _CellGraphs:
     """One grid cell's CUDA graphs: a graph a segment, in one memory pool,
     replayed in the order they were captured."""
@@ -549,7 +152,8 @@ class GridProgram:
     input is the batch padded to the tier's batch size and split evenly over
     the data axis (fem_tpu/pipeline/engine.py:759-768, then P(DATA_AXIS)):
     row d is the packed rows [d * Bloc, (d + 1) * Bloc), uploaded once to
-    each device that holds a cell of it.
+    each device that holds a cell of it. One device is a grid of one cell:
+    one row, one upload, one segment, one result copy.
 
     `step` (parallel/mesh.py:GridStep) cuts each cell's step into segments
     at the points where a row's cells meet: one segment a cell on a data
@@ -565,13 +169,17 @@ class GridProgram:
     the last result copy: drain threads submit retries too, and the static
     buffers must never see two batches interleaved.
 
-    As StepProgram's, the key's first dispatch runs eagerly on the engine's
-    streams and is its result; the capture follows, on private streams, in
-    thread-local mode, under the engine's capture lock. A capture that
-    fails raises, and so does one whose kernels differ from the eager
-    dispatch's (`kernels.recording_launches`); each replay adds the
-    launches every cell's capture recorded. With `eager` (the engine's
-    `eager_step`) and on the CPU the same segments run eagerly."""
+    The key's first dispatch runs eagerly on the engine's streams (the
+    warm-up: the kernel library loads, the allocator fills, the kernels
+    launch and are counted as they are) and is its result; the capture
+    follows, on private streams, in thread-local mode, under the engine's
+    capture lock, so that drain threads waiting on their events meanwhile
+    do not break it. A capture that fails raises, and so does one whose
+    kernels differ from the eager dispatch's (`kernels.recording_launches`):
+    nothing falls back to the eager path. The capture launches nothing, so
+    each replay adds the launches every cell's capture recorded. With
+    `eager` (the engine's `eager_step`) and on the CPU the same segments
+    run eagerly, on the same padded, packed input."""
 
     def __init__(self, key: tuple, step, indexes: dict, streams: dict,
                  capture_lock: threading.Lock):
@@ -635,8 +243,6 @@ class GridProgram:
             return host, ready
 
     def _replay(self, devs: list) -> None:
-        from fem_tpu_torch.parallel.mesh import streams_of
-
         for k in range(len(self.cells[0].graphs)):
             for cell in self.cells:
                 with torch.cuda.stream(self.streams[cell.device]):
@@ -655,8 +261,6 @@ class GridProgram:
         reduced: the captured kernels did not run. Each cell's next segment
         reads static tensors of the values' structure, which a replay's
         reductions write."""
-        from fem_tpu_torch.parallel.mesh import static_like
-
         step = self.step
         with span("fem::step.capture"), self._capture_lock:
             sides = {dev: torch.cuda.Stream(dev) for dev in self.streams}
@@ -725,7 +329,6 @@ class Pending(NamedTuple):
     tier: int
     seq: int | None  # stream position of a tier-0 batch
     origins: list | None  # a pooled retry batch: its reads' origin seqs
-    events: list | None  # StageTimer events of this batch
     trace: tuple | None  # while tracing: (its fem::submit span's id, its batch id)
 
 
@@ -744,13 +347,14 @@ class MappingEngine:
         self.config = config or EngineConfig()
         if self.config.mesh is not None and self.config.index_mesh is not None:
             raise ValueError("EngineConfig takes a mesh or an index_mesh, not both")
-        self.grid = self.config.index_mesh or self.config.mesh  # None: one device
-        devices = [torch.device(device)] if self.grid is None else self.grid.local_devices()
+        # One device is a data grid of one cell.
+        self.grid = self.config.index_mesh or self.config.mesh or make_mesh([device])
+        devices = self.grid.local_devices()
         for dev in devices:
             if dev.type == "cuda" and not torch.cuda.is_available():
                 raise RuntimeError(f"device {dev} requested but CUDA is not available")
         self.device = devices[0]
-        self._cross = self.grid is not None and self.grid.crosses_processes
+        self._cross = self.grid.crosses_processes
         # One compute stream per device: every device step and every result
         # copy is enqueued on it, from whichever thread submits.
         self._streams = {}
@@ -758,20 +362,16 @@ class MappingEngine:
             if dev.type == "cuda":
                 self._streams[dev] = torch.cuda.Stream(dev)
                 self._streams[dev].wait_stream(torch.cuda.current_stream(dev))
-        self._stream = self._streams.get(self.device)
-        self._cell_index: dict = {}  # (d, i) -> DeviceIndex of a grid's cell
+        self._cell_index: dict = {}  # (d, i) -> DeviceIndex of the grid's cell
         if self.config.index_mesh is not None:
             occurrences = self._init_sharded_index(index)
-            self.dindex = None
         else:
             occurrences = index.num_occurrences
-            self.dindex = device_index_from_host(index, reference, self.device)
-            if self.grid is not None:  # the whole index once per device
-                on = {self.device: self.dindex}
-                for d, i, dev in self.grid.local_cells():
-                    if dev not in on:
-                        on[dev] = device_index_from_host(index, reference, dev)
-                    self._cell_index[d, i] = on[dev]
+            on = {}  # the whole index once per device
+            for d, i, dev in self.grid.local_cells():
+                if dev not in on:
+                    on[dev] = device_index_from_host(index, reference, dev)
+                self._cell_index[d, i] = on[dev]
         self._native = NativeEmitter(reference, args.error_threshold)
         self._cpu_mapper = NativeCpuMapper(args, reference, index)
         self._fallback_lock = threading.Lock()
@@ -799,13 +399,11 @@ class MappingEngine:
         self._watermark_seq = 0
         self._watermark_reads = 0
         self.consumed_reads = 0
-        self.stage_timer: StageTimer | None = None  # one device only; needs eager_step
-        # The step programs by (tier, Lmax): StepPrograms on one device,
-        # GridPrograms on a grid. `eager_step` runs their bodies eagerly on
-        # the card, the counterpart of jax.disable_jit(), for what a graph's
-        # replay never calls: the StageTimer's events and wrappers of the
-        # kernels' call sites.
-        self.programs: Dict[tuple, "StepProgram | GridProgram"] = {}
+        # The step programs by (tier, Lmax). `eager_step` runs their
+        # segments eagerly on the card, the counterpart of
+        # jax.disable_jit(), for what a graph's replay never calls: wrappers
+        # of the kernels' call sites.
+        self.programs: Dict[tuple, GridProgram] = {}
         self.eager_step = False
         self._programs_lock = threading.Lock()
         self._capture_lock = threading.Lock()
@@ -816,7 +414,6 @@ class MappingEngine:
         memory, each step program (its key, dispatches and replays, and each
         cell's segments, capture seconds, graph MiB and replays), and each
         grid cell's index (occurrences, reference bytes, bytes in all)."""
-        cells = {(0, 0): self.dindex} if self.dindex is not None else self._cell_index
         return {
             "tier0_cap_occ": self.tier0_cap_occ,
             "tier0_cap_occ_derived": self.config.cap_occ is None,
@@ -829,15 +426,13 @@ class MappingEngine:
             "programs": [p.describe() for _, p in sorted(self.programs.items())],
             "cells": [{"cell": list(key), "occurrences": int(ix.occ.numel()),
                        "ref_bytes": int(ix.ref_flat.numel()), "nbytes": ix.nbytes()}
-                      for key, ix in sorted(cells.items())],
+                      for key, ix in sorted(self._cell_index.items())],
         }
 
     def _init_sharded_index(self, index: FemIndex) -> int:
         """Each cell's shard on its device, once per (device, shard).
         Returns the largest shard's occurrences (every process sees every
         shard's)."""
-        from fem_tpu_torch.parallel.sharded_index import build_sharded_index
-
         _, n_ip = self._mesh_shape()
         sh = build_sharded_index(index, self.reference, n_ip)
         self._sharded_halo = sh.halo
@@ -850,8 +445,7 @@ class MappingEngine:
 
     def _mesh_shape(self) -> Tuple[int, int]:
         """(data shards, index shards)."""
-        grid = self.config.index_mesh or self.config.mesh
-        return (1, 1) if grid is None else tuple(grid.grid.shape)
+        return tuple(self.grid.grid.shape)
 
     def _default_tiers(self) -> tuple:
         """The retry ladder above tier 0 when the config names none: about
@@ -942,8 +536,7 @@ class MappingEngine:
         return self._tier(tier).batch_size // n_dp
 
     def _program(self, tier: int, Lmax: int):
-        """The step program of (tier, Lmax), made at its first use: a
-        StepProgram on one device, a GridProgram on a grid."""
+        """The step program of (tier, Lmax), made at its first use."""
         key = (tier, Lmax)
         with self._programs_lock:
             prog = self.programs.get(key)
@@ -951,12 +544,8 @@ class MappingEngine:
                 tc = self._tier(tier)
                 params = FilterParams.from_args(
                     self.args, Lmax, cap_occ=tc.cap_occ, cap_cand=tc.cap_cand)
-                if self.grid is None:
-                    prog = StepProgram(key, self.dindex, params, *self._caps(tc), self.device,
-                                       self._stream, self._capture_lock)
-                else:
-                    prog = GridProgram(key, self._grid_step(params, tc), self._cell_index,
-                                       self._streams, self._capture_lock)
+                prog = GridProgram(key, self._grid_step(params, tc), self._cell_index,
+                                   self._streams, self._capture_lock)
                 self.programs[key] = prog
         return prog
 
@@ -979,71 +568,51 @@ class MappingEngine:
         without waiting for either; pair with `drain_batch`. `tier` selects
         the capacity rung: 0 = the config's own caps, >= 1 = the retry
         ladder for reads that overflowed a smaller tier. The batch is padded
-        to the tier's batch size and packed (`_packed`) and goes to the
-        (tier, Lmax) step program, on a grid split evenly over the data
-        rows. Drain threads call this too (retries); the program enters the
-        engine's streams itself: the current stream is per thread."""
+        to the tier's batch size and packed (`_packed`), split into n_dp rows
+        of batch_size / n_dp reads, as fem_tpu's sharded program takes it,
+        and goes to the (tier, Lmax) GridProgram, which copies each cell's
+        packed result into one host buffer (segments in `local_cells`
+        order) and records an event a device after its copies. Drain
+        threads call this too (retries); the program enters the engine's
+        streams itself: the current stream is per thread."""
         tc = self._tier(tier)
         n = batch.num_reads
         if n > tc.batch_size:
             raise ValueError(
                 f"batch of {n} reads exceeds batch_size {tc.batch_size} of tier {tier}")
-        timer = self.stage_timer
-        if (self.grid is None and timer is not None and self._stream is not None
-                and not self.eager_step):
-            raise ValueError("a StageTimer times the eager step: set engine.eager_step")
+        Lmax = batch.codes.shape[1]
+        if (self.config.index_mesh is not None
+                and Lmax + 2 * self.args.error_threshold > self._sharded_halo):
+            # Owned candidates' verification bands must stay inside the
+            # shard's [start - halo, end + halo) slice.
+            raise ValueError(
+                f"read length {Lmax} exceeds the sharded-index halo "
+                f"({self._sharded_halo}); rebuild with a larger halo")
+        n_dp, _ = self._mesh_shape()
+        if tc.batch_size % n_dp:
+            raise ValueError(f"batch size {tc.batch_size} not divisible by data mesh {n_dp}")
+        Bloc = tc.batch_size // n_dp
         with span("fem::submit", tier=tier, reads=n) as sp:
             if tier > 0:
                 with self._fallback_lock:
                     self.tier_dispatches += 1
                     self.dispatches_by_tier[tier] += 1
-            if self.grid is not None:
-                flat, ready = self._submit_grid(batch, tier, tc)
-                events = None
-            else:
-                flat, ready, events = self._program(tier, batch.codes.shape[1]).run(
-                    self._packed(batch, tc), self.eager_step, timer)
-            return self._register_pending(batch, flat, ready, tier, origins, events, sp)
-
-    def _submit_grid(self, batch: ReadBatch, tier: int, tc: TierConfig):
-        """One step over the grid's cells in this process, through the
-        (tier, Lmax) GridProgram: the batch padded to the tier's batch size
-        and split into n_dp rows of batch_size / n_dp reads, as fem_tpu's
-        sharded program takes it; each cell's packed result copied into
-        one host buffer (segments in `local_cells` order), an event a
-        device after its copies."""
-        Lmax = batch.codes.shape[1]
-        n_dp, _ = self._mesh_shape()
-        if self.config.index_mesh is not None:
-            e = self.args.error_threshold
-            if Lmax + 2 * e > self._sharded_halo:
-                # Owned candidates' verification bands must stay inside the
-                # shard's [start - halo, end + halo) slice.
-                raise ValueError(
-                    f"read length {Lmax} exceeds the sharded-index halo "
-                    f"({self._sharded_halo}); rebuild with a larger halo")
-        if tc.batch_size % n_dp:
-            raise ValueError(f"batch size {tc.batch_size} not divisible by data mesh {n_dp}")
-        Bloc = tc.batch_size // n_dp
-        packed = self._packed(batch, tc)
-        prog = self._program(tier, Lmax)
-        return prog.run({d: packed[d * Bloc : (d + 1) * Bloc] for d, _ in prog.rows},
-                        self.eager_step)
+            packed = self._packed(batch, tc)
+            prog = self._program(tier, Lmax)
+            flat, ready = prog.run({d: packed[d * Bloc : (d + 1) * Bloc] for d, _ in prog.rows},
+                                   self.eager_step)
+            return self._register_pending(batch, flat, ready, tier, origins, sp)
 
     def _grid_step(self, params: FilterParams, tc: TierConfig):
         """The grid's step at these shapes, cut into its segments
         (parallel/mesh.py:GridStep)."""
         verify_cap, accept_cap = self._cell_caps(tc)
         if self.config.index_mesh is not None:
-            from fem_tpu_torch.parallel.sharded_index import make_index_sharded_map_fn
-
             return make_index_sharded_map_fn(
                 self.grid, params, verify_cap, accept_cap, gather_rows=self._cross)
-        from fem_tpu_torch.parallel.mesh import make_sharded_map_fn
-
         return make_sharded_map_fn(self.grid, params, verify_cap, accept_cap)
 
-    def _register_pending(self, batch, flat, ready, tier, origins, events, sp) -> Pending:
+    def _register_pending(self, batch, flat, ready, tier, origins, sp) -> Pending:
         seq = None
         if tier == 0:
             with self._pool_lock:
@@ -1054,7 +623,7 @@ class MappingEngine:
         if sp.id is not None:  # a retry batch's id: its submit span's, negated
             trace = (sp.id, seq if tier == 0 else -sp.id)
             sp.tag(batch=trace[1])
-        return Pending(batch, flat, ready, tier, seq, origins, events, trace)
+        return Pending(batch, flat, ready, tier, seq, origins, trace)
 
     def _map_read_fallback(self, name, seq, qual) -> Tuple[List[bytes], MappingStats]:
         """Exact host mapping of one read by the in-process C++ mapper."""
@@ -1095,14 +664,12 @@ class MappingEngine:
         mode, mapped synchronously otherwise, with their records spliced
         back in read order. With `per_read`, returns one record list per
         read."""
-        batch, flat, ready, tier, seq, origins, events, trace = pending
+        batch, flat, ready, tier, seq, origins, trace = pending
         cause, bid = trace or (None, None)
         with span("fem::drain", cause=cause, batch=bid, tier=tier, reads=batch.num_reads):
             with span("fem::drain.wait"):
                 for ev in ready:
                     ev.synchronize()
-                if events is not None:
-                    self.stage_timer.collect(events, tier)
             n = batch.num_reads
             n_dp, n_ip = self._mesh_shape()
             Bloc = self._segment_reads(tier)
@@ -1178,9 +745,7 @@ class MappingEngine:
         capacity-overflow reads and joins the same tier dispatches, in the
         same order; inherent reads go to the row owner's host mapper, and
         reads past the last tier round-robin over the processes."""
-        from fem_tpu_torch.parallel.multihost import allgather_bitmaps, gather_rows
-
-        batch, flat, ready, tier, seq, origins, events, trace = pending
+        batch, flat, ready, tier, seq, origins, trace = pending
         cause, bid = trace or (None, None)
         with span("fem::drain", cause=cause, batch=bid, tier=tier, reads=batch.num_reads):
             for ev in ready:

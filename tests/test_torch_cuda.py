@@ -353,28 +353,22 @@ def test_engine_on_cuda_matches_golden(cuda, small_reference, small_index, defau
         assert dataclasses.asdict(stats) == dataclasses.asdict(gstats)
         assert kernels.launches == {"banded_myers": 1, "filter_tail": 1, "occ_slab": 1}
     prog = engine.programs[0, 128]
-    assert prog.graph is not None and prog.replays == 1
+    assert prog.captured and prog.replays == 1
     assert kernels.launches_by_shape()["banded_myers"] == {(64 * 2 * 4, 128): 1}
 
 
 def test_eager_step_on_cuda_equals_graph(cuda, small_reference, small_index, default_args):
-    """engine.eager_step runs the step eagerly on the card (a StageTimer
-    needs it, and refuses the graphs); a short batch is padded either way."""
-    from fem_tpu_torch.pipeline.engine import StageTimer
-
+    """engine.eager_step runs the step eagerly on the card; a short batch is
+    padded either way."""
     seqs, ref = small_reference
     engine = MappingEngine(default_args, ref, small_index,
                            EngineConfig(batch_size=64, cap_occ=80, cap_cand=16,
                                         verify_per_read=4), device=cuda)
     batch = _batch(sim.simulate_reads(seqs, 50, read_length=100, max_errors=2, seed=37))
     graphs = [engine.map_batch(batch) for _ in range(3)]
-    engine.stage_timer = StageTimer(cuda)
-    with pytest.raises(ValueError, match="eager_step"):
-        engine.map_batch(batch)
     engine.eager_step = True
     eager = engine.map_batch(batch)
     assert all(g == eager for g in graphs)
-    assert engine.stage_timer.batches[0] == 1
     assert engine.programs[0, 128].replays == 2
 
 
@@ -404,7 +398,7 @@ def test_sweep_config_on_cuda_matches_golden(cuda, tmp_path, name, n):
         recs, stats = engine.map_batch(batch)
         assert b"".join(recs) == b"".join(grecs)
         assert dataclasses.asdict(stats) == dataclasses.asdict(gstats)
-    assert all(p.graph is not None for p in engine.programs.values())
+    assert all(p.captured for p in engine.programs.values())
     assert engine.programs[0, batch.codes.shape[1]].replays == 1
 
 

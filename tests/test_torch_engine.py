@@ -13,15 +13,10 @@ import __graft_entry__
 from fem_tpu import sim
 from fem_tpu.golden.model import GoldenMapper, MappingStats
 from fem_tpu.pipeline.engine import map_core as jmap_core
-from fem_tpu_torch.ops.types import device_index_from_jax
-from fem_tpu_torch.pipeline.engine import (
-    EngineConfig,
-    MappingEngine,
-    map_core,
-    pack_result,
-    unpack_result,
-)
+from fem_tpu_torch.ops.step import map_core, pack_result, unpack_result
+from fem_tpu_torch.pipeline.engine import EngineConfig, MappingEngine
 from tests.test_engine import _batch_from_reads
+from tests.torch_bridges import device_index_from_jax
 
 torch.set_num_threads(1)
 

@@ -23,19 +23,13 @@ import torch
 from jax.sharding import Mesh
 
 from fem_tpu import sim
+from fem_tpu.golden.model import GoldenMapper
 from fem_tpu.ops.types import FilterParams as JFilterParams
 from fem_tpu.parallel import mesh as jmesh
 from fem_tpu.pipeline import engine as jengine
+from fem_tpu_torch.ops.step import map_core, pack_result, unpack_input
 from fem_tpu_torch.parallel.mesh import make_index_mesh, make_mesh
-from fem_tpu_torch.pipeline.engine import (
-    EngineConfig,
-    GridProgram,
-    MappingEngine,
-    TierConfig,
-    map_core,
-    pack_result,
-    unpack_input,
-)
+from fem_tpu_torch.pipeline.engine import EngineConfig, GridProgram, MappingEngine, TierConfig
 from tests.test_engine import _batch_from_reads
 from tests.test_torch_sharded_ladder import _jax_sharded_counts
 from tests.test_torch_tiers import (  # noqa: F401 (satellite_world: a fixture)
@@ -116,6 +110,38 @@ def test_segments_equal_map_core_on_one_cell(small_reference, small_index, defau
     flat, ready = prog.run({0: packed})
     assert ready == [] and torch.equal(flat, pack_result(want))
 
+
+
+def test_one_card_is_a_one_cell_grid(small_reference, small_index, default_args):
+    """An engine on one device holds only GridPrograms: a batch that
+    overflows tier 0 (a verify slab of 8 slots for 16 reads) maps to the
+    same bytes, counters and report, step programs and their dispatches
+    included, as the same engine given a one-cell data grid, and both equal
+    the golden oracle."""
+    seqs, ref = small_reference
+    caps = dict(batch_size=16, cap_occ=256, cap_cand=128, verify_per_read=0.25,
+                accept_per_read=1)
+    card = MappingEngine(default_args, ref, small_index, EngineConfig(**caps), device="cpu")
+    grid = MappingEngine(default_args, ref, small_index,
+                         EngineConfig(**caps, mesh=make_mesh(["cpu"])), device="cpu")
+    assert card.grid.grid.shape == (1, 1)
+    batch = _batch_from_reads(sim.simulate_reads(seqs, 16, read_length=100, max_errors=2,
+                                                 seed=53))
+    recs, stats = card.map_batch(batch)
+    grecs, gstats = grid.map_batch(batch)
+    orecs, ostats = GoldenMapper(default_args, ref, small_index).map_reads(
+        batch.names, batch.seqs, batch.quals)
+    assert b"".join(recs) == b"".join(grecs) == b"".join(orecs)
+    assert dataclasses.asdict(stats) == dataclasses.asdict(gstats) == dataclasses.asdict(ostats)
+    assert card.retried_reads > 0
+    assert set(card.programs) == {(0, 128), (1, 128)}
+    assert all(isinstance(p, GridProgram) for p in card.programs.values())
+    for c in COUNTERS + ("dispatches_by_tier",):
+        assert getattr(card, c) == getattr(grid, c), c
+    report = card.report()
+    assert [(p["key"], p["dispatches"]) for p in report["programs"]] == [
+        ([0, 128], 1), ([1, 128], card.tier_dispatches)]
+    assert report == grid.report()
 
 def test_short_batch_counts_equal_jax_sharded_program(satellite_world):
     """A (2, 2) grid's segments on a short batch padded to the tier's batch

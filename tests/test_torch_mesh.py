@@ -5,6 +5,9 @@ cell's accepted hits carry, globalized over the batch by the JAX package's
 rule, equal to fem_tpu/parallel/mesh.py's on the same reads."""
 
 import dataclasses
+import os
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -17,11 +20,13 @@ from fem_tpu.golden.model import GoldenMapper
 from fem_tpu.ops.types import FilterParams as JFilterParams, device_index_from_host as jindex
 from fem_tpu.parallel import mesh as jmesh
 from fem_tpu.pipeline.engine import unpack_outputs
+from fem_tpu_torch.ops.step import pack_input, pack_result, unpack_result
 from fem_tpu_torch.ops.types import FilterParams, device_index_from_host
 from fem_tpu_torch.parallel.mesh import DeviceMesh, make_mesh, make_sharded_map_fn
-from fem_tpu_torch.pipeline.engine import (
-    EngineConfig, MappingEngine, pack_input, pack_result, unpack_result)
+from fem_tpu_torch.pipeline.engine import EngineConfig, MappingEngine
 from tests.test_engine import _batch_from_reads
+
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 torch.set_num_threads(1)
 
@@ -120,7 +125,8 @@ def test_engine_config_from_jax_carries_grid_shapes(small_reference, small_index
     from jax.sharding import Mesh
 
     from fem_tpu.pipeline import engine as jengine
-    from fem_tpu_torch.pipeline.engine import TierConfig, engine_config_from_jax
+    from fem_tpu_torch.pipeline.engine import TierConfig
+    from tests.torch_bridges import engine_config_from_jax
 
     jcfg = jengine.EngineConfig(batch_size=32, mesh=jmesh.make_mesh(jax.devices()[:4]))
     got = engine_config_from_jax(vars(jcfg), device="cpu")
@@ -140,3 +146,22 @@ def test_engine_config_from_jax_carries_grid_shapes(small_reference, small_index
         batch.names, batch.seqs, batch.quals)
     assert b"".join(recs) == b"".join(grecs)
     assert dataclasses.asdict(stats) == dataclasses.asdict(gstats)
+
+
+def test_parallel_does_not_import_pipeline():
+    """The layers import one way, pipeline/ -> parallel/ -> ops/: every
+    module under fem_tpu_torch/parallel/ and fem_tpu_torch/ops/ imports,
+    in a fresh interpreter, without loading fem_tpu_torch.pipeline."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import fem_tpu_torch.ops, fem_tpu_torch.parallel\n"
+        "import fem_tpu_torch.parallel.mesh, fem_tpu_torch.parallel.sharded_index\n"
+        "for pkg in (fem_tpu_torch.ops, fem_tpu_torch.parallel):\n"
+        "    for m in pkgutil.iter_modules(pkg.__path__):\n"
+        "        importlib.import_module(pkg.__name__ + '.' + m.name)\n"
+        "assert 'fem_tpu_torch.parallel.multihost' in sys.modules\n"
+        "print(sorted(m for m in sys.modules if m.startswith('fem_tpu_torch.pipeline')))\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=_REPO, capture_output=True,
+                          text=True, env=dict(os.environ, PYTHONPATH=_REPO), timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip() == "[]", proc.stdout

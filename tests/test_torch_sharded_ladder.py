@@ -18,9 +18,10 @@ from jax.sharding import Mesh, PartitionSpec as P
 from fem_tpu.ops.types import DeviceIndex as JDeviceIndex, FilterParams as JFilterParams
 from fem_tpu.parallel import sharded_index as jsharded
 from fem_tpu.pipeline import engine as jengine
+from fem_tpu_torch.ops.step import map_core_steps
 from fem_tpu_torch.ops.types import FilterParams
 from fem_tpu_torch.parallel.mesh import GridReducer, make_index_mesh
-from fem_tpu_torch.pipeline.engine import EngineConfig, MappingEngine, TierConfig, map_core_steps
+from fem_tpu_torch.pipeline.engine import EngineConfig, MappingEngine, TierConfig
 from tests.test_engine import _batch_from_reads
 from tests.test_torch_tiers import (  # noqa: F401 (satellite_world: a fixture)
     TEST_TIERS, _golden, _lines, _mixed_reads, _stream, satellite_world)

@@ -1,9 +1,10 @@
-"""The engine's step program on the CPU (fem_tpu_torch/pipeline/engine.py,
-StepProgram): the padded, packed step against the unpadded one, the
-program cache by (tier, Lmax), the packed input's length bytes, and the
+"""The engine's step program on one device, on the CPU
+(fem_tpu_torch/pipeline/engine.py, GridProgram on a grid of one cell): the
+padded, packed step against the unpadded one, the program cache by (tier,
+Lmax), the packed input's length bytes (fem_tpu_torch/ops/step.py), and the
 arithmetic of kernel launch counts under capture and replay.
 
-On a card the program's body is one CUDA graph; here the same body runs
+On a card the cell's step is one CUDA graph; here the same segment runs
 eagerly on the same padded, packed input, so everything but the graph is
 held here (tests/test_torch_cuda.py holds the graphs on the card).
 """
@@ -19,9 +20,7 @@ import torch
 from fem_tpu import sim
 from fem_tpu.golden.model import GoldenMapper
 from fem_tpu_torch import kernels
-from fem_tpu_torch.pipeline.engine import (
-    EngineConfig,
-    MappingEngine,
+from fem_tpu_torch.ops.step import (
     accepted_hits,
     map_core,
     pack_input,
@@ -29,6 +28,7 @@ from fem_tpu_torch.pipeline.engine import (
     unpack_input,
     unpack_result,
 )
+from fem_tpu_torch.pipeline.engine import EngineConfig, MappingEngine
 from tests.test_engine import _batch_from_reads
 
 torch.set_num_threads(1)
@@ -65,14 +65,14 @@ def test_padded_step_equals_unpadded(small_reference, small_index, default_args,
     batch = _batch_from_reads(reads)
     Lmax = batch.codes.shape[1]
     prog = engine._program(0, Lmax)
-    acc_cap = max(prog.accept_cap, 8)
+    acc_cap = max(prog.step.accept_cap, 8)
 
-    flat, ready, _ = prog.run(pack_input(batch.codes, batch.lengths, B))
+    flat, ready = prog.run({0: pack_input(batch.codes, batch.lengths, B)})
     assert ready == [] and flat.shape[0] == 3 + 5 * acc_cap + 2 * B
     padded = unpack_result(flat.numpy(), acc_cap, B)
-    out = map_core(engine.dindex, torch.from_numpy(batch.codes),
-                   torch.from_numpy(batch.lengths), prog.params, prog.verify_cap,
-                   prog.accept_cap)
+    out = map_core(engine._cell_index[0, 0], torch.from_numpy(batch.codes),
+                   torch.from_numpy(batch.lengths), prog.step.params, prog.step.verify_cap,
+                   prog.step.accept_cap)
     plain = unpack_result(pack_result(out).numpy(), acc_cap, n)
     np.testing.assert_array_equal(_hits_by_read(padded, acc_cap, B),
                                   _hits_by_read(plain, acc_cap, n))
@@ -113,8 +113,8 @@ def test_one_program_per_tier_and_lmax(small_reference, small_index, default_arg
     assert lines(recs) == lines(grecs)
     # A program is the key's own: its shapes follow the tier and Lmax.
     p128, p160 = engine.programs[0, 128], engine.programs[0, 160]
-    assert (p128.params.max_read_length, p160.params.max_read_length) == (128, 160)
-    assert p128.verify_cap == p160.verify_cap == int(2 * B * 32)
+    assert (p128.step.params.max_read_length, p160.step.params.max_read_length) == (128, 160)
+    assert p128.step.verify_cap == p160.step.verify_cap == int(2 * B * 32)
 
 
 def test_retry_tier_gets_its_own_program(small_reference, small_index, default_args):
@@ -229,8 +229,8 @@ def test_recording_is_per_thread():
 
 
 def test_eager_step_gives_the_programs_result(small_reference, small_index, default_args):
-    """engine.eager_step (the eager path a StageTimer needs on the card)
-    maps the same batch to the same bytes."""
+    """engine.eager_step (the eager path on which the card's kernel
+    wrappers are called and timed) maps the same batch to the same bytes."""
     seqs, _ = small_reference
     batch = _batch_from_reads(sim.simulate_reads(seqs, B - 3, read_length=100,
                                                  max_errors=2, seed=54))

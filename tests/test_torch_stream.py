@@ -19,7 +19,6 @@ import random
 import time
 from concurrent.futures import ThreadPoolExecutor
 
-import numpy as np
 import pytest
 import torch
 
@@ -269,39 +268,3 @@ def test_launch_counter_is_exact_under_threads():
     kernels.reset_launches()
     assert kernels.launches_by_shape() == {"banded_myers": {}, "filter_tail": {},
                                            "occ_slab": {}}
-
-
-def test_stage_timer_events_travel_with_the_batch():
-    """A StageTimer's event lists belong to batches, not to the timer: two
-    batches' lists filled in turns are collected apart."""
-    from fem_tpu_torch.pipeline import engine as engine_mod
-
-    class FakeEvent:
-        clock = 0.0
-
-        def __init__(self, enable_timing=True):
-            self.t = None
-
-        def record(self, stream=None):
-            FakeEvent.clock += 1.0
-            self.t = FakeEvent.clock
-
-        def synchronize(self):
-            pass
-
-        def elapsed_time(self, other):
-            return other.t - self.t
-
-    timer = engine_mod.StageTimer(torch.device("cpu"))
-    timer._record = lambda: (lambda ev: (ev.record(), ev)[1])(FakeEvent())
-    a, b = timer.begin(), timer.begin()  # clocks 1, 2
-    for stage in engine_mod.STAGES:  # interleaved: a, b, a, b, ...
-        timer.mark(a, stage)
-        timer.mark(b, stage)
-    timer.collect(b, tier=2)
-    timer.collect(a, tier=0)
-    assert timer.batches == {0: 1, 1: 1}
-    first = engine_mod.STAGES[0]
-    assert timer.ms[0][first] == 2.0 and timer.ms[1][first] == 2.0
-    assert all(timer.ms[0][s] == 2.0 for s in engine_mod.STAGES[1:])
-    assert np.isclose(sum(timer.ms[1].values()), 2.0 * len(engine_mod.STAGES))

@@ -148,7 +148,7 @@ def test_derived_cap_maps_as_256_does(heavy_world):
     assert fixed.retried_reads > derived.retried_reads
     assert derived.report()["tier0_cap_occ"] == 448
     assert sorted(derived.programs)[0][0] == 0
-    assert derived.programs[sorted(derived.programs)[0]].params.cap_occ == 448
+    assert derived.programs[sorted(derived.programs)[0]].step.params.cap_occ == 448
 
 
 def test_index_grid_derives_from_its_largest_shard(heavy_world):

@@ -21,13 +21,14 @@ from fem_tpu.golden.model import GoldenMapper, MappingStats
 from fem_tpu.index.build import build_index
 from fem_tpu.io import fastx
 from fem_tpu.pipeline import engine as jengine
+from fem_tpu_torch.parallel.mesh import make_mesh
 from fem_tpu_torch.pipeline.engine import (
     EngineConfig,
     MappingEngine,
     TierConfig,
-    engine_config_from_jax,
 )
 from tests.test_engine import _batch_from_reads
+from tests.torch_bridges import engine_config_from_jax
 
 torch.set_num_threads(1)
 
@@ -194,9 +195,11 @@ def test_map_batch_equals_jax_engine_with_same_ladder(satellite_world):
 
 
 def _ladder(engine_cls, config):
-    """The tiers an engine derives, without building the engine."""
+    """The tiers an engine derives, without building the engine (the
+    port's on one device: a grid of one cell)."""
     eng = object.__new__(engine_cls)
     eng.config = config
+    eng.grid = make_mesh(["cpu"])
     return tuple(dataclasses.asdict(t) for t in engine_cls._default_tiers(eng))
 
 

@@ -12,6 +12,7 @@ import torch
 from fem_tpu.config import FemArgs
 from fem_tpu.ops import types as jtypes
 from fem_tpu_torch.ops import types as ttypes
+from tests.torch_bridges import device_index_from_jax
 
 torch.set_num_threads(1)
 
@@ -42,7 +43,7 @@ def test_device_index_from_jax_equals_from_host(small_reference, small_index):
         for k in ("occ_rows", "ref_rows", "csr_rows", "freq_table",
                   "ref_offsets", "ref_lengths", "num_occurrences")
     }
-    got = ttypes.device_index_from_jax(arrays, "cpu")
+    got = device_index_from_jax(arrays, "cpu")
     want = ttypes.device_index_from_host(small_index, ref, "cpu")
     assert got.num_occurrences == want.num_occurrences == small_index.num_occurrences
     for f in ("occ", "lookup", "freq_table", "ref_flat", "ref_offsets", "ref_lengths"):
