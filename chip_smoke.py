@@ -207,6 +207,14 @@ exits non-zero without its result line:
               320,000 slots, each held against its plain version and timed
               in that process, a row of its own whose launches are that
               batch's count at the row's shape.
+  13. compact tools/torch_compact_rows.py as a process of its own: each
+              benchmark cell's configuration and traffic made as fembench
+              makes them (chr21 at e=5 and at e=7 on 150 bp reads, the
+              3.0 Gb GRCh38 profile), its first batch of 10,000 reads
+              mapped once with the eager step; tier 0's verify-slab and
+              accept calls (cap_cand 256 over 20,000 lanes) held against
+              their plain version and timed, a row each whose launches are
+              that batch's count at the row's shape.
 
 Each kernel's bound is the least time the card could take for the same
 inputs: the bytes it must move (inputs once, outputs once) over 3.35 TB/s,
@@ -272,6 +280,9 @@ SCALE_VERIFY_SLOTS = 2 * SCALE_BATCH * 16
 GRCH38_TAIL = (576, 256)
 GRCH38_ROWS = {"occ_slab_tier0": "occ_slab_grch38", "filter_tail_tier0": "filter_tail_grch38",
                "banded_myers_tier0": "banded_myers_grch38"}
+# Phase 13: tools/torch_compact_rows.py on these benchmark cells, by configuration.
+COMPACT_CELLS = {"chr21_e5": "chr21_e5.wgs", "grch38_e5": "grch38_e5.wgs",
+                 "chr21_e7": "chr21_e7.len150"}
 # Phase 4: a flat reference of 2.2 GB whose chromosome starts past byte 2^31.
 FAR_REF_BYTES = 2_200_000_000
 FAR_OFFSET = 2**31 + 12_345
@@ -334,10 +345,15 @@ ROW_LAUNCHES = {
     "filter_tail_grch38": ("filter_tail", lambda s: s == GRCH38_TAIL, "grch38"),
     "banded_myers_grch38": ("banded_myers",
                             lambda s: s == (SCALE_VERIFY_SLOTS, 2 * SCALE_BATCH), "grch38"),
+    # Phase 13's tier-0 compactions on each benchmark cell's first batch
+    # (cap_cand 256 over 20,000 lanes).
+    **{f"{k}_{c}": (k, lambda s: s == (256, 2 * SCALE_BATCH), f"compact_{c}")
+       for k in ("verify_slab", "accept_slab") for c in COMPACT_CELLS},
 }
 # Where each kernel's launches by shape lie in a run's record.
 SHAPES_KEY = {"filter_tail": "tail_shapes", "banded_myers": "myers_shapes",
-              "occ_slab": "occ_shapes"}
+              "occ_slab": "occ_shapes", "verify_slab": "verify_shapes",
+              "accept_slab": "accept_shapes"}
 # The wider cap_occ of the command line's default ladder (cap_occ 256, B
 # 10,000): (tier, reads, cap_occ), held on phase 11's tier-0 seed tables.
 SCALE_WIDER = ((1, 512, 2048), (2, 64, 16384))
@@ -650,6 +666,43 @@ def occ_bound_of(off_s, lfreq_s, start_s, lane_ok, cap: int, mode: str) -> tuple
     note = (f"{n_occ / items:.2f} occurrences a group read, groups over cap_occ "
             f"{float((fc8.sum(dim=2) > cap).double().mean()):.2%}")
     return bound(nbytes, ops), note
+
+
+def verify_slab_bound(cand_sid, index, cap: int, slab) -> tuple[dict, str]:
+    """Bound of one verify-slab call, and a line about it. Bytes: each
+    lane's list up to its first sentinel (8 B an entry, the sentinel
+    included; a full list whole) and its read length in, the chromosome
+    lengths and owned ranges once; out the slab's three int32 rows whole
+    (zeros past the total are part of it), each lane's count and offset
+    (12 B) and the total. Operations: one range test an entry read."""
+    from fem_tpu_torch.ops.types import SENTINEL_SID
+
+    NB, CC = cand_sid.shape
+    listed = (cand_sid != SENTINEL_SID).sum(dim=1)
+    read = int((listed + 1).clamp(max=CC).sum())
+    S = index.ref_lengths.shape[0]
+    nbytes = read * 8 + NB * 4 + S * (4 if index.own_start is None else 12)
+    nbytes += 12 * cap + 12 * NB + 8
+    total = int(slab.total)
+    note = (f"{float(listed.double().mean()):.2f} listed and "
+            f"{float(slab.num_candidates.double().mean()):.2f} kept a lane, total {total} of "
+            f"{cap} slots, lanes with a full list {int((listed == CC).sum())}")
+    return bound(nbytes, read), note
+
+
+def accept_slab_bound(slab, accepted, acc_cap: int) -> tuple[dict, str]:
+    """Bound of one accept call, and a line about it. Bytes: each lane's
+    verify count and offset (12 B) and the accepted flags of the slots in
+    use in, the kept hits' sid, pos, edit distance and end (16 B) in; out
+    the accept slab's five int32 rows whole, a flag a lane and the total.
+    Operations: one test a slot in use."""
+    NB = slab.num_candidates.shape[0]
+    used = min(int(slab.total), slab.sid.shape[0])
+    n_acc = int(accepted[:used].sum())
+    kept = min(n_acc, acc_cap)
+    nbytes = NB * 12 + used + kept * 16 + 20 * acc_cap + NB + 8
+    note = f"{used} slots in use, {n_acc} accepted, {kept} of {acc_cap} kept"
+    return bound(nbytes, used), note
 
 
 def occ_parts(res) -> list:
@@ -1035,6 +1088,8 @@ class Probe:
         self._wrap(candidates_mod, "occ_slab")
         self._wrap(candidates_mod, "occ_bound")
         self._wrap(step_mod, "verify_candidates")
+        self._wrap(step_mod, "verify_slab")
+        self._wrap(step_mod, "accept_slab")
         self._time(engine, "_emit_native", lambda a, k, dt: self._emitted(dt))
         self._time(engine, "submit_batch", self._submitted)
 
@@ -1055,7 +1110,11 @@ class Probe:
 
     def _wrap(self, owner, attr) -> None:
         real = getattr(owner, attr)
-        keep = lambda x: x.clone() if torch.is_tensor(x) else x
+
+        def keep(x):
+            if isinstance(x, tuple) and hasattr(x, "_fields"):  # a NamedTuple of tensors
+                return x._make(keep(y) for y in x)
+            return x.clone() if torch.is_tensor(x) else x
 
         def wrapped(*args, **kwargs):
             for key, test in self.capture.items():
@@ -1116,6 +1175,7 @@ def run_engine(engine, probe: Probe, batches, mode: str) -> dict:
             "retried": retried, "dispatches": dispatches, "fallback": fallback,
             "launches": launches, "tail_shapes": shapes["filter_tail"],
             "myers_shapes": shapes["banded_myers"], "occ_shapes": shapes["occ_slab"],
+            "verify_shapes": shapes["verify_slab"], "accept_shapes": shapes["accept_slab"],
             "submit_s": {t: list(v) for t, v in probe.submit_s.items()}}
 
 
@@ -1217,7 +1277,8 @@ def phase_main(tag: str, ref, index, paths, config, dev, turns: tuple,
     check(all(n > 0 for n in run["launches"].values()),
           f"{tag}: a kernel of the main path never launched")
     check(run["launches"]["filter_tail"] == run["launches"]["banded_myers"]
-          == run["launches"]["occ_slab"] == len(batches) + run["dispatches"],
+          == run["launches"]["occ_slab"] == run["launches"]["verify_slab"]
+          == run["launches"]["accept_slab"] == len(batches) + run["dispatches"],
           f"{tag}: not one launch of each kernel a dispatch")
     baseline_check(tag, paths, run)
 
@@ -1332,7 +1393,8 @@ def _no_ladder_run(tag: str, args, ref, index, paths, config, counted: dict) -> 
     check(run["fallback"] > 0 and run["retried"] == 0 and run["dispatches"] == 0,
           f"{tag}: without a ladder the overflow reads did not reach the host mapper")
     check(run["launches"]["filter_tail"] == run["launches"]["banded_myers"]
-          == run["launches"]["occ_slab"] == NUM_READS // BATCH,
+          == run["launches"]["occ_slab"] == run["launches"]["verify_slab"]
+          == run["launches"]["accept_slab"] == NUM_READS // BATCH,
           f"{tag}: the run without a ladder launched otherwise")
 
 
@@ -1505,7 +1567,9 @@ def phase_cli(workdir: str, paths: dict) -> dict:
         f"occ_slab by (cap_occ, lanes) {shapes['occ_slab']}")
     check(shapes["filter_tail"].get((80, 16), 0) > 0
           and shapes["banded_myers"].get((4 * BATCH, 2 * BATCH), 0) > 0
-          and shapes["occ_slab"].get((80, 2 * BATCH), 0) > 0,
+          and shapes["occ_slab"].get((80, 2 * BATCH), 0) > 0
+          and shapes["verify_slab"].get((16, 2 * BATCH), 0) > 0
+          and shapes["accept_slab"].get((16, 2 * BATCH), 0) > 0,
           "cli map: a kernel was launched no time at the tier-0 shapes")
     check(stats["mapping_stats"] == dict(zip(COUNTER_KEYS, counters))
           and stats["reads"] == NUM_READS, "cli map: the stats JSON disagrees with stderr")
@@ -1621,7 +1685,8 @@ def _grid_run(tag: str, engine, batches, paths: dict, capture: dict | None = Non
     # reduction of its bound over the index axis.
     slabs = 2 if engine.config.index_mesh is not None else 1
     check(run["launches"]["filter_tail"] == run["launches"]["banded_myers"]
-          == run["launches"]["occ_slab"] // slabs == cells * dispatches,
+          == run["launches"]["occ_slab"] // slabs == run["launches"]["verify_slab"]
+          == run["launches"]["accept_slab"] == cells * dispatches,
           f"{tag}: not one launch of each kernel a cell a dispatch ({cells} cells, "
           f"{dispatches} dispatches, {slabs} occ_slab launches a step): {run['launches']}")
     run["graphs"] = check_graphs(tag, engine, dispatches)
@@ -1903,11 +1968,31 @@ def _hold_call(name: str, key: str, args: list, kw: dict, row: str | None,
     """One wrapper call captured from configuration `name`'s run, against its
     plain version on the same inputs (exact). With `row`, also timed and
     bounded as a kernel-table row, which is returned."""
+    from fem_tpu_torch.ops import compact
     from fem_tpu_torch.ops.filter_tail import filter_tail, filter_tail_plain, plan
     from fem_tpu_torch.ops.occ_slab import occ_bound, occ_slab, occ_slab_plain
     from fem_tpu_torch.ops.verify import verify_candidates, verify_candidates_plain
 
-    if key.startswith("occ_"):  # occ_slab (own or given bound) or occ_bound
+    if key.startswith("verify_slab"):
+        cand_sid, cand_pos, lengths, dindex, e, cap = args
+        kernel = lambda: list(compact.verify_slab(*args))
+        plain = lambda: list(compact.verify_slab_plain(*args))
+        bnd, note = verify_slab_bound(cand_sid, dindex, cap,
+                                      compact.verify_slab_plain(*args))
+        what = f"NB={cand_sid.shape[0]} CC={cand_sid.shape[1]} e={e} cap={cap}"
+        base = {"source": "fem_tpu_torch/csrc/compact.cu",
+                "replaces": "no Pallas kernel: XLA ops of fem_tpu/pipeline/engine.py map_core"}
+        timing = dict(kernel="verify_slab", plain_reps=3, plain_samples=5)
+    elif key.startswith("accept_slab"):
+        slab, accepted, ed, end, acc_cap, width = args
+        kernel = lambda: list(compact.accept_slab(*args))
+        plain = lambda: list(compact.accept_slab_plain(slab, accepted, ed, end, acc_cap))
+        bnd, note = accept_slab_bound(slab, accepted, acc_cap)
+        what = f"NB={slab.num_candidates.shape[0]} V={slab.sid.shape[0]} acc_cap={acc_cap}"
+        base = {"source": "fem_tpu_torch/csrc/compact.cu",
+                "replaces": "no Pallas kernel: XLA ops of fem_tpu/pipeline/engine.py map_core"}
+        timing = dict(kernel="accept_slab", plain_reps=3, plain_samples=5)
+    elif key.startswith("occ_"):  # occ_slab (own or given bound) or occ_bound
         off_s, lfreq_s, start_s, lane_ok, occ, cap = args
         tkey = kw.get("tkey")
         mode = "bound" if key.startswith("occ_bound") else ("own" if tkey is None else "given")
@@ -2024,7 +2109,8 @@ def phase_configs(workdir: str, seqs, benign_paths: dict) -> tuple[dict, list]:
                  f"{[b.num_reads for b in batches]} padded to {BATCH}", run)
         graphs = check_graphs(tag, engine, len(batches) + run["dispatches"])
         check(run["launches"]["filter_tail"] == run["launches"]["banded_myers"]
-              == run["launches"]["occ_slab"] == len(batches) + run["dispatches"],
+              == run["launches"]["occ_slab"] == run["launches"]["verify_slab"]
+              == run["launches"]["accept_slab"] == len(batches) + run["dispatches"],
               f"{tag}: not one launch of each kernel a dispatch: {run['launches']}")
         counters = baseline_check(tag, paths, run, e=e, a=a, num_reads=SWEEP_READS)
         in_bound = step <= length // (e + 2) - k + 1
@@ -2260,6 +2346,35 @@ def phase_grch38() -> tuple[dict, list]:
     return {"grch38": run}, rows
 
 
+def phase_compact() -> tuple[dict, list]:
+    """Phase 13: tools/torch_compact_rows.py as a process of its own (each
+    benchmark cell's first batch mapped once with the eager step): its
+    verify-slab and accept rows, each equal to its plain version, become
+    kernel-table rows whose launches are the batch's count at the row's
+    shape (path "compact_<configuration>")."""
+    t_phase = time.perf_counter()
+    p = subprocess.run([sys.executable, os.path.join(REPO, "tools", "torch_compact_rows.py"),
+                        "--cells", ",".join(COMPACT_CELLS.values())],
+                       env=_child_env(), capture_output=True, text=True, timeout=900)
+    out = p.stdout.strip().splitlines()
+    for line in out[:-1]:
+        log(line if line.startswith("[compact]") else f"[compact] {line}")
+    check(p.returncode == 0 and out, f"torch_compact_rows failed (rc {p.returncode}): "
+          f"{p.stdout[-3000:]}{p.stderr[-3000:]}")
+    summary = json.loads(out[-1])
+    for row in summary["rows"]:
+        check(row["max_abs_err"] == 0, f"compact: {row['name']} differs from its plain version")
+    want = {f"{k}_{c}" for k in ("verify_slab", "accept_slab") for c in COMPACT_CELLS}
+    check({r["name"] for r in summary["rows"]} == want,
+          f"compact: rows {sorted(r['name'] for r in summary['rows'])} only")
+    runs = {f"compact_{c}": {key: {tuple(int(x) for x in k.split("x")): n
+                                   for k, n in shapes.get(kernel, {}).items()}
+                             for kernel, key in SHAPES_KEY.items()}
+            for c, shapes in summary["launches_by_shape"].items()}
+    log(f"[compact] phase 13: {time.perf_counter() - t_phase:.1f} s")
+    return runs, summary["rows"]
+
+
 def main() -> int:
     from fem_tpu_torch.pipeline.engine import EngineConfig
 
@@ -2331,7 +2446,9 @@ def main() -> int:
         lap("phase 11")
     grch38_runs, grch38_rows = phase_grch38()
     lap("phase 12")
-    rows += grid_rows + sweep_rows + scale_table + grch38_rows
+    compact_runs, compact_rows = phase_compact()
+    lap("phase 13")
+    rows += grid_rows + sweep_rows + scale_table + grch38_rows + compact_rows
     check(adversarial["retried"] > 0, "adversarial: no read was retried")
     check(any(cap + cc > 512 for cap, cc in adversarial["tail_shapes"]),
           "adversarial: filter_tail never launched above cap_cand + cap_occ = 512")
@@ -2345,7 +2462,7 @@ def main() -> int:
     # shape of a count names no Lmax, e or a.
     runs = {"benign": benign, "adversarial": adversarial, **grid_runs}
     paths = {**runs, **{f"configs_{n}": r for n, r in sweep_runs.items()}, **scale_runs,
-             **grch38_runs}
+             **grch38_runs, **compact_runs}
     check({r["name"] for r in rows} == set(ROW_LAUNCHES), "a row without a launch count")
     for row in rows:
         kernel, at_shape, path = ROW_LAUNCHES[row["name"]]

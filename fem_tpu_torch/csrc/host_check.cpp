@@ -1,12 +1,14 @@
 // Host build of the kernels' per-lane arithmetic (g++, no CUDA): the same
 // header code as on the card. A filter-tail lane or an occurrence-slab item
 // runs as one emulated warp or block (warp_emul.h), a Myers slot as one
-// plain call. The CPU tests hold these entry points against the plain torch
+// plain call, a compaction's blocks as emulated blocks one after the other
+// (in ticket order, so a look-back never waits). The CPU tests hold these entry points against the plain torch
 // versions.
 #include <vector>
 
 #include "warp_emul.h"
 
+#include "compact_core.h"
 #include "filter_tail_core.h"
 #include "myers_core.h"
 #include "occ_slab_core.h"
@@ -35,6 +37,21 @@ void tail_block_lanes(int T, const int32_t* sid, const int32_t* diag, int nb,
     warp_emul::run_block(T, [&](int t) {
       ft::filter_tail_block_lane(T, sid, diag, b, G, cap, cc, e, a,
                                  scratch.data(), t, out_sid, out_pos, overflow);
+    });
+}
+
+// A compaction's blocks one after the other, each as one emulated block,
+// after zeroing its slab rows and scan state in `buf` (as the card's
+// memset does).
+template <class Src>
+void compact_blocks(const Src& src, int T, int64_t nb, int64_t cap, int rows, void* buf) {
+  int64_t words = cpt::slab_words(rows, cap);
+  memset(buf, 0, words * sizeof(int32_t) + cpt::state_words(nb, T) * sizeof(uint64_t));
+  uint64_t* state = reinterpret_cast<uint64_t*>(static_cast<int32_t*>(buf) + words);
+  int64_t sc[cpt::kScratchWords];
+  for (int64_t b = 0; b < cpt::blocks(nb, T); ++b)
+    warp_emul::run_block(cpt::lanes_per_block(T) * T, [&](int tid) {
+      cpt::compact_block(T, tid, src, nb, cap, state, sc);
     });
 }
 
@@ -100,5 +117,35 @@ extern "C" int fem_host_occ_slab(const int64_t* off, const int64_t* lfreq,
                          occ_tab, n_occ, tkey_in, out_sid, out_diag, overflow,
                          tkey_out, scratch.data());
     });
+  return 0;
+}
+
+// The compactions, arguments as fem_verify_slab's and fem_accept_slab's;
+// `threads` a multiple of 32 up to 1,024, 0 for the card's cpt::threads.
+// Return 0.
+extern "C" int fem_host_verify_slab(const int32_t* sid, const int32_t* pos,
+                                    const int32_t* lens, const int32_t* ref_len,
+                                    int num_seqs, const int32_t* own_start,
+                                    const int32_t* own_end, int64_t nb, int cc, int e,
+                                    int64_t cap, void* buf, int32_t* num, int64_t* off,
+                                    int64_t* total, int threads) {
+  int32_t* slab = static_cast<int32_t*>(buf);
+  cpt::VerifySrc src{sid, pos, lens, ref_len, own_start, own_end, num_seqs, cc, e,
+                     slab, slab + cap, slab + 2 * cap, num, off, total};
+  compact_blocks(src, threads > 0 ? threads : cpt::threads(cc), nb, cap, 3, buf);
+  return 0;
+}
+
+extern "C" int fem_host_accept_slab(const int32_t* v_sid, const int32_t* v_pos,
+                                    const int32_t* ed, const int32_t* end,
+                                    const uint8_t* accepted, const int32_t* num,
+                                    const int64_t* off, int64_t nb, int cc, int64_t vcap,
+                                    int64_t acap, void* buf, uint8_t* ok,
+                                    int64_t* n_accepted, int threads) {
+  int32_t* slab = static_cast<int32_t*>(buf);
+  cpt::AcceptSrc src{v_sid, v_pos, ed, end, accepted, num, off, vcap, acap, slab,
+                     slab + acap, slab + 2 * acap, slab + 3 * acap, slab + 4 * acap, ok,
+                     n_accepted};
+  compact_blocks(src, threads > 0 ? threads : cpt::threads(cc), nb, acap, 5, buf);
   return 0;
 }

@@ -43,10 +43,12 @@ NVCC_FLAGS = [
 ]
 build_log = ""  # ptxas -v output of the last build in this process
 
-launches = {"banded_myers": 0, "filter_tail": 0, "occ_slab": 0}
+launches = {"banded_myers": 0, "filter_tail": 0, "occ_slab": 0, "verify_slab": 0,
+            "accept_slab": 0}
 # The same launches by shape: filter_tail's key is (cap_occ, cap_cand),
 # banded_myers' is (verify slots, read-strand lanes), occ_slab's is
-# (cap_occ, read-strand lanes).
+# (cap_occ, read-strand lanes), verify_slab's and accept_slab's are
+# (cap_cand, read-strand lanes).
 launch_shapes = {k: collections.Counter() for k in launches}
 
 _lock = threading.Lock()
@@ -165,6 +167,18 @@ def library() -> ctypes.CDLL:
                 _I64, _I, _I, _I, _P,  # items, S, cap, mode, tkey_in
                 _P, _P, _P, _P, _P,  # out_sid, out_diag, overflow, tkey_out, stream
             ]
+            lib.fem_verify_slab.restype = _I
+            lib.fem_verify_slab.argtypes = [
+                _P, _P, _P, _P, _I, _P, _P,  # sid, pos, lens, ref_len, seqs, own_start, own_end
+                _I64, _I, _I, _I64,  # nb, cc, e, cap
+                _P, _P, _P, _P, _P,  # buf, num, off, total, stream
+            ]
+            lib.fem_accept_slab.restype = _I
+            lib.fem_accept_slab.argtypes = [
+                _P, _P, _P, _P, _P, _P, _P,  # v_sid, v_pos, ed, end, accepted, num, off
+                _I64, _I, _I64, _I64,  # nb, cc, vcap, acap
+                _P, _P, _P, _P,  # buf, ok, n_accepted, stream
+            ]
             lib.fem_cuda_error_string.restype = ctypes.c_char_p
             lib.fem_cuda_error_string.argtypes = [_I]
             _lib = lib
@@ -199,5 +213,13 @@ def build_host_check(out_dir: str) -> ctypes.CDLL:
     lib.fem_host_occ_slab.restype = _I
     lib.fem_host_occ_slab.argtypes = [
         _P, _P, _P, _P, _P, _I64, _I64, _I, _I, _I, _P, _P, _P, _P, _P, _I,
+    ]
+    lib.fem_host_verify_slab.restype = _I
+    lib.fem_host_verify_slab.argtypes = [
+        _P, _P, _P, _P, _I, _P, _P, _I64, _I, _I, _I64, _P, _P, _P, _P, _I,
+    ]
+    lib.fem_host_accept_slab.restype = _I
+    lib.fem_host_accept_slab.argtypes = [
+        _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I64, _I64, _P, _P, _P, _I,
     ]
     return lib

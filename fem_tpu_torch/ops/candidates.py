@@ -11,7 +11,9 @@ Parity-critical quirks kept:
     frequent) seed only contributes diagonals <= the largest (sid, diag)
     of the other seeds (src/filter.c:85);
   * candidates near chromosome edges drop and survivors shift by -e to the
-    band start (src/filter.c:133-144).
+    band start (src/filter.c:133-144): the range filter, which the step
+    applies as it compacts the lists (ops/compact.py) and
+    `generate_candidates` applies here in plain torch.
 The slab itself, its 8-aligned layout (so `overflow_occ`, the
 capacity-retry flag, is fem_tpu's rule bit for bit), the read-offset drop
 and the last-seed truncation are ops/occ_slab.py: a CUDA kernel on the
@@ -26,7 +28,7 @@ over the index axis, and `candidates_back` writes the slab truncated at
 the reduced bound (on a whole index `candidates_front` writes it). Reads
 whose candidates fall in the first e positions of a slice that starts
 mid-chromosome carry the inherent bit (halo risk), and only candidates
-inside the shard's owned range survive.
+inside the shard's owned range survive (the range filter's).
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from fem_tpu_torch.ops.compact import range_filter
 from fem_tpu_torch.ops.filter_tail import filter_tail
 from fem_tpu_torch.ops.occ_slab import occ_bound, occ_slab
 from fem_tpu_torch.ops.seed_select import U32, select_qgrams
@@ -50,6 +53,18 @@ class CandidateResult(NamedTuple):
     needs_fallback: torch.Tensor  # (NB,) bool — capacity overflow
     inherent_fallback: torch.Tensor  # (NB,) bool — incomplete DP, no tier helps
     mappable: torch.Tensor  # (NB,) bool — passed length/ambiguity guards
+
+
+class CandidateTail(NamedTuple):
+    """Generation up to the range filter: the filter tail's lists as it
+    writes them (ascending, the sentinels last) and the lanes' flags."""
+
+    cand_sid: torch.Tensor  # (NB, CC) int32
+    cand_pos: torch.Tensor  # (NB, CC) int32 diagonals
+    dp_total: torch.Tensor  # (NB,) int64
+    needs_fallback: torch.Tensor  # (NB,) bool
+    inherent_fallback: torch.Tensor  # (NB,) bool
+    mappable: torch.Tensor  # (NB,) bool
 
 
 class CandidateFront(NamedTuple):
@@ -81,9 +96,16 @@ def generate_candidates(
     params: FilterParams,
 ) -> CandidateResult:
     """Candidates of a whole index (on a shard, the truncation bound is
-    this shard's alone: see candidates_front / candidates_back)."""
+    this shard's alone: see candidates_front / candidates_back), range
+    filtered."""
     front = candidates_front(codes, lengths, hashes, ambiguous, index, params)
-    return candidates_back(front, front.tkey, index, params)
+    tail = candidates_back(front, front.tkey, index, params)
+    cand_pos, cand_valid, num_candidates = range_filter(
+        tail.cand_sid, tail.cand_pos, lengths, index, params.error_threshold)
+    return CandidateResult(
+        tail.cand_sid, cand_pos, cand_valid, num_candidates, tail.dp_total,
+        tail.needs_fallback, tail.inherent_fallback, tail.mappable,
+    )
 
 
 def candidates_front(
@@ -159,11 +181,12 @@ def candidates_front(
 
 def candidates_back(
     front: CandidateFront, tkey: torch.Tensor, index: DeviceIndex, params: FilterParams,
-) -> CandidateResult:
-    """Generation from the truncation on, given the bound `tkey` reduced
-    over every index shard (front.tkey itself on a whole index)."""
-    lengths, overflow_occ, complete, degenerate, mappable, dp_total = (
-        front.lengths, front.overflow_occ, front.complete, front.degenerate,
+) -> CandidateTail:
+    """Generation from the truncation to the filter tail's lists, given the
+    bound `tkey` reduced over every index shard (front.tkey itself on a
+    whole index)."""
+    overflow_occ, complete, degenerate, mappable, dp_total = (
+        front.overflow_occ, front.complete, front.degenerate,
         front.mappable, front.dp_total)
     e = params.error_threshold
 
@@ -184,15 +207,6 @@ def candidates_back(
         sid, diag, params.cap_cand, e, params.num_additional_qgrams,
     )
 
-    # ---- range filter + band-start shift (src/filter.c:133-144) -----------
-    ref_len = index.ref_lengths[cand_sid.long().clamp(0, index.ref_lengths.shape[0] - 1)]
-    in_range = (cand_pos >= e) & (cand_pos + lengths[:, None] + e < ref_len)
-    cand_valid = (cand_sid != SENTINEL_SID) & in_range
-    if index.own_start is not None:  # each candidate is owned by one shard
-        sid_c = cand_sid.long().clamp(0, index.own_start.shape[0] - 1)
-        cand_valid &= (cand_pos >= index.own_start[sid_c]) & (cand_pos < index.own_end[sid_c])
-    cand_pos = torch.where(cand_valid, cand_pos - e, cand_pos)
-
     # Capacity overflow could retry at a bigger shape; an incomplete
     # non-degenerate DP or a halo risk is fixed by none, so it routes to the
     # host mapper.
@@ -200,8 +214,4 @@ def candidates_back(
     inherent = mappable & (~complete & ~degenerate).any(dim=1)
     if halo_risk is not None:
         inherent |= mappable & halo_risk
-    num_candidates = cand_valid.sum(dim=1, dtype=torch.int32)
-    return CandidateResult(
-        cand_sid, cand_pos, cand_valid, num_candidates, dp_total,
-        needs_fallback, inherent, mappable,
-    )
+    return CandidateTail(cand_sid, cand_pos, dp_total, needs_fallback, inherent, mappable)

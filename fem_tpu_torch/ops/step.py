@@ -17,18 +17,10 @@ import numpy as np
 import torch
 
 from fem_tpu_torch.ops.candidates import candidates_back, candidates_front
+from fem_tpu_torch.ops.compact import accept_slab, verify_slab
 from fem_tpu_torch.ops.hashing import ambiguous_base_counts, reverse_complement, seed_hashes
 from fem_tpu_torch.ops.types import DeviceIndex, FilterParams
 from fem_tpu_torch.ops.verify import verify_candidates
-
-
-def _scatter(size: int, slot: torch.Tensor, ok: torch.Tensor, values: torch.Tensor):
-    """out[slot[i]] = values[i] where ok[i], into a zeroed (size,) tensor:
-    rejected entries go to one extra dump slot that is cut off (torch
-    raises on an out-of-bounds index where JAX drops the write)."""
-    out = torch.zeros(size + 1, dtype=values.dtype, device=values.device)
-    out.scatter_(0, torch.where(ok, slot, size), values)
-    return out[:size]
 
 
 def map_core(
@@ -87,46 +79,24 @@ def map_core_steps(
     amb = ambiguous_base_counts(both, lens2, params.kmer_size)
     front = candidates_front(both, lens2, hashes, amb, index, params)
     tkey = yield "max", front.tkey
-    cand = candidates_back(front, tkey, index, params)
+    tail = candidates_back(front, tkey, index, params)
 
-    # Compact valid candidates into the verify slab, lane-major and in
-    # ascending position: the emitter's mapping order relies on it.
-    NB, CC = cand.cand_valid.shape
-    flat_valid = cand.cand_valid.reshape(-1)
-    order = torch.cumsum(flat_valid, 0) - 1
-    total = flat_valid.sum()
-    to_slab = flat_valid & (order < verify_cap)
-    # Each slot's lane, without repeat_interleave (which may size its
-    # output with a host read, and a CUDA graph captures no host read).
-    lane_of = (torch.arange(NB * CC, device=codes.device) // CC).int()
-    v_lane = _scatter(verify_cap, order, to_slab, lane_of)
-    v_sid = _scatter(verify_cap, order, to_slab, cand.cand_sid.reshape(-1))
-    v_pos = _scatter(verify_cap, order, to_slab, cand.cand_pos.reshape(-1))
-    # Only the first `total` slots hold a candidate; the rest are skipped
-    # and come back not accepted.
-    vres = verify_candidates(index, v_sid, v_pos, v_lane, both, lens2, e, used=total)
-    accepted = vres.accepted
-
-    acc_cap = max(accept_cap, 8)
-    a_order = torch.cumsum(accepted, 0) - 1
-    n_accepted = accepted.sum()
-    to_acc = accepted & (a_order < acc_cap)
-
-    def compact(x):
-        return _scatter(acc_cap, a_order, to_acc, x)
-
-    # A read is fully covered iff both lanes' candidate spans end within
-    # verify_cap and both lanes' accepted hits within acc_cap (the two
+    # The range filter and the verify slab, lane-major and in ascending
+    # position: the emitter's mapping order relies on it. Only the first
+    # `total` slots hold a candidate; Myers skips the rest, which come back
+    # not accepted. Then the accepted hits into the accept slab. A read is
+    # fully covered iff both its lanes' spans end within both caps (the two
     # truncations cut a prefix of lanes); the rest are mapped again exactly.
-    ok_v = torch.cumsum(cand.cand_valid.sum(dim=1), 0) <= verify_cap
-    acc_per_lane = torch.zeros(NB, dtype=torch.int64, device=codes.device)
-    acc_per_lane.index_add_(0, v_lane.long(), accepted.long())
-    ok_a = torch.cumsum(acc_per_lane, 0) <= acc_cap
-    ok_lane = ok_v & ok_a
-    retry = ~(ok_lane[:B] & ok_lane[B:])
+    slab = verify_slab(tail.cand_sid, tail.cand_pos, lens2, index, e, verify_cap)
+    vres = verify_candidates(index, slab.sid, slab.pos, slab.lane, both, lens2, e,
+                             used=slab.total)
+    acc_cap = max(accept_cap, 8)
+    acc = accept_slab(slab, vres.accepted, vres.edit_distance, vres.end_offset, acc_cap,
+                      params.cap_cand)
+    retry = ~(acc.ok[:B] & acc.ok[B:])
 
     num_candidates, (needs_fallback, inherent_fallback, retry) = yield ("sum", "max"), (
-        cand.num_candidates, (cand.needs_fallback, cand.inherent_fallback, retry))
+        slab.num_candidates, (tail.needs_fallback, tail.inherent_fallback, retry))
 
     # Per-read fallback bits and the counter sums over the other reads
     # (fem_tpu pack_outputs); dp sums in int64, so no 16/16 split.
@@ -134,23 +104,23 @@ def map_core_steps(
     fb = needs_fallback[:B] | needs_fallback[B:] | retry | inherent
     keep = ~torch.cat([fb, fb])
     out = {
-        "slab_overflow": (total > verify_cap) | (n_accepted > acc_cap),
+        "slab_overflow": (slab.total > verify_cap) | (acc.n_accepted > acc_cap),
         "retry": retry,
-        "a_lane": compact(v_lane),
-        "a_sid": compact(v_sid),
-        "a_pos": compact(v_pos),
-        "a_ed": compact(vres.edit_distance),
-        "a_end": compact(vres.end_offset),
-        "n_accepted": n_accepted,
+        "a_lane": acc.lane,
+        "a_sid": acc.sid,
+        "a_pos": acc.pos,
+        "a_ed": acc.ed,
+        "a_end": acc.end,
+        "n_accepted": acc.n_accepted,
         "num_candidates": num_candidates,
-        "dp_total": cand.dp_total,
+        "dp_total": tail.dp_total,
         "needs_fallback": needs_fallback,
         "inherent_fallback": inherent_fallback,
-        "total_candidates": total,
+        "total_candidates": slab.total,
         "fb": fb,
         "inherent": inherent,
         "sum_nc": (num_candidates.long() * keep).sum(),
-        "sum_dp": (cand.dp_total * keep).sum(),
+        "sum_dp": (tail.dp_total * keep).sum(),
     }
     return out
 

@@ -86,7 +86,8 @@ def test_tiny_cpu_run_every_worker_count_equal(tmp_path):
     assert line["reads_checked"] == 4 * 64 + 5 * 64
     assert "adversarial_rps" not in line
     # On the CPU the wrappers run the plain versions: no kernel launched.
-    assert line["kernel_launches"] == {"banded_myers": 0, "filter_tail": 0, "occ_slab": 0}
+    assert line["kernel_launches"] == {"banded_myers": 0, "filter_tail": 0, "occ_slab": 0,
+                                       "verify_slab": 0, "accept_slab": 0}
     assert set(line["rps_by_workers"]) == {"2", "1"}
     assert proc.stderr.count("full-run equality") == 2
 

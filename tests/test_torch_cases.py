@@ -1,10 +1,11 @@
 """Seeded input cases shared by the port's kernel tests on the CPU
-(test_torch_candidates.py, test_torch_verify.py) and on the card
+(test_torch_candidates.py, test_torch_verify.py, test_torch_compact.py) and on the card
 (test_torch_cuda.py). No test lives here, and nothing here imports JAX."""
 
 import numpy as np
+import torch
 
-from fem_tpu_torch.ops.types import BIG, SENTINEL_SID
+from fem_tpu_torch.ops.types import BIG, SENTINEL_SID, DeviceIndex
 
 
 def masked(sid, diag, valid):
@@ -281,3 +282,172 @@ def occ_case(name, cap, S=7, NB=4, G=3, seed=0):
                 occ[o + 1] = (rng.integers(0, 3) << 32) | 50
     return dict(off=off.astype(np.int64), lfreq=lfreq.astype(np.int64),
                 start=start.astype(np.int64), lane_ok=lane_ok, occ=occ.astype(np.int64))
+
+
+# ---- the slab compactions (ops/compact.py, csrc/compact_core.h) -----------
+# Filter-tail lists as the tail writes them (each lane ascending by (sid,
+# pos), the sentinels last), a read length a lane, chromosome lengths, and
+# Myers' results for the verify slab those lists fill; each case at one edge
+# of the compactions: the widths are tier 0's, tier 1's and tier 2's
+# cap_cand, at as many lanes as the CPU's emulated blocks run quickly.
+COMPACT_WIDTHS = {256: 24, 2048: 6, 16384: 4}  # cap_cand: lanes
+COMPACT_CASE_NAMES = ("random", "empty_lanes", "all_empty", "not_prefix", "full_lane",
+                      "verify_cap_mid_lane", "acc_cap_mid_lane", "shard")
+COMPACT_REF_LENGTHS = (9000, 5000, 7000)
+
+
+def compact_case(name, cc, NB=None, seed=0):
+    """dict(cand_sid, cand_pos: (NB, CC) int32; lengths: (NB,) int32;
+    ref_lengths, own_start, own_end: (S,) int32, the last two None but on
+    `shard`; e; verify_cap; acc_cap: None, set by `accept_inputs`)."""
+    NB = NB or COMPACT_WIDTHS[cc]
+    rng = np.random.default_rng([seed, cc, NB, COMPACT_CASE_NAMES.index(name)])
+    e = 5
+    ref = np.array(COMPACT_REF_LENGTHS, np.int32)
+    lengths = rng.integers(80, 121, NB).astype(np.int32)
+    counts = rng.integers(0, min(cc, 60) + 1, NB)
+    if name in ("empty_lanes", "verify_cap_mid_lane", "acc_cap_mid_lane"):
+        counts[rng.random(NB) < 0.6] = 0
+        counts[NB // 2] = max(counts[NB // 2], 12)
+    if name == "all_empty":
+        counts[:] = 0
+    if name == "not_prefix":
+        counts = np.maximum(counts, 4)
+    if name == "full_lane":  # lane 1 fills its list: no sentinel to stop at
+        counts[1] = cc
+    sid = np.full((NB, cc), SENTINEL_SID, np.int32)
+    pos = np.full((NB, cc), BIG, np.int32)
+    for b in range(NB):
+        keys = np.zeros(0, np.int64)
+        while len(keys) < counts[b]:  # distinct keys, as the fold leaves them
+            n = int(counts[b])
+            s = rng.integers(0, len(ref), n)
+            # most bands inside their chromosome, the rest over an edge
+            lo, hi = e, ref[s] - lengths[b] - e
+            p = rng.integers(lo, hi)
+            edge = rng.random(n)
+            if name != "full_lane":
+                p = np.where(edge < 0.15, rng.integers(0, e + 1, n), p)
+                p = np.where(edge > 0.85, hi + rng.integers(-1, e, n), p)
+            keys = np.unique(np.r_[keys, (s.astype(np.int64) << 32) | p])
+        keys = np.sort(rng.choice(keys, int(counts[b]), replace=False))
+        if name == "not_prefix":  # in every lane, a dropped band between two kept ones
+            keys[:3] = np.sort([100, 9000 - int(lengths[b]) - e, (1 << 32) | 50])
+            keys = np.unique(keys)
+        sid[b, : len(keys)] = keys >> 32
+        pos[b, : len(keys)] = keys & 0xFFFFFFFF
+    own_start = own_end = None
+    if name == "shard":  # this shard owns a middle stretch of each chromosome
+        own_start = (ref // 4).astype(np.int32)
+        own_end = (ref * 3 // 4).astype(np.int32)
+        own_end[2] = own_start[2]  # and nothing of the last
+    valid = _compact_valid(sid, pos, lengths, ref, own_start, own_end, e)
+    n = valid.sum(axis=1)
+    verify_cap = int(n.sum()) + 7
+    if name == "verify_cap_mid_lane":
+        lane = int(np.flatnonzero(n >= 2)[len(np.flatnonzero(n >= 2)) // 2])
+        verify_cap = int(n[:lane].sum() + n[lane] // 2)
+    return dict(cand_sid=sid, cand_pos=pos, lengths=lengths, ref_lengths=ref,
+                own_start=own_start, own_end=own_end, e=e, verify_cap=verify_cap,
+                acc_cap=None)
+
+
+def _compact_valid(sid, pos, lengths, ref, own_start, own_end, e):
+    s = np.clip(sid, 0, len(ref) - 1)
+    valid = (sid != SENTINEL_SID) & (pos >= e) & (
+        pos.astype(np.int64) + lengths[:, None] + e < ref[s])
+    if own_start is not None:
+        valid &= (pos >= own_start[s]) & (pos < own_end[s])
+    return valid
+
+
+def compact_reference(c):
+    """The compactions by loops over lanes and slots, from the rules alone:
+    the verify slab (sid, pos, lane), each lane's count and offset and the
+    total; then, from `accept_inputs`' Myers results, the accept slab
+    (lane, sid, pos, ed, end), the accepted total and each lane's ok."""
+    sid, pos, e, cap = c["cand_sid"], c["cand_pos"], c["e"], c["verify_cap"]
+    valid = _compact_valid(sid, pos, c["lengths"], c["ref_lengths"], c["own_start"],
+                           c["own_end"], e)
+    v = np.zeros((3, cap), np.int32)
+    num = valid.sum(axis=1).astype(np.int32)
+    off = np.concatenate([[0], np.cumsum(num)[:-1]]).astype(np.int64)
+    slot = 0
+    for b in range(sid.shape[0]):
+        for i in np.flatnonzero(valid[b]):
+            if slot < cap:
+                v[:, slot] = sid[b, i], pos[b, i] - e, b
+            slot += 1
+    out = dict(v_sid=v[0], v_pos=v[1], v_lane=v[2], num_candidates=num, offset=off,
+               total=slot)
+    if c["acc_cap"] is None:
+        return out
+    acc, ed, end, acap = c["accepted"], c["ed"], c["end"], c["acc_cap"]
+    a = np.zeros((5, acap), np.int32)
+    ok = np.zeros(sid.shape[0], bool)
+    k = 0
+    for b in range(sid.shape[0]):
+        lo, hi = off[b], min(off[b] + num[b], cap)
+        for s in range(lo, max(lo, hi)):
+            if acc[s]:
+                if k < acap:
+                    a[:, k] = b, v[0, s], v[1, s], ed[s], end[s]
+                k += 1
+        ok[b] = off[b] + num[b] <= cap and k <= acap
+    out.update(a_lane=a[0], a_sid=a[1], a_pos=a[2], a_ed=a[3], a_end=a[4], n_accepted=k,
+               ok=ok)
+    return out
+
+
+def accept_inputs(c, seed=0):
+    """Myers' results for case `c`'s verify slab as banded_myers leaves
+    them: about half the slots in use accepted (ed <= e), ed = e + 1 and
+    end = -1 past them; sets c's accepted, ed, end and an acc_cap that
+    holds every accepted hit."""
+    ref = compact_reference(c)
+    rng = np.random.default_rng([seed, c["verify_cap"], len(c["lengths"])])
+    cap, e = c["verify_cap"], c["e"]
+    used = min(ref["total"], cap)
+    ed = rng.integers(0, 2 * e + 2, cap).astype(np.int32)
+    end = rng.integers(90, 131, cap).astype(np.int32)
+    ed[used:], end[used:] = e + 1, -1
+    acc = ed <= e
+    c.update(accepted=acc, ed=ed, end=end, acc_cap=int(acc.sum()) + 3)
+    return c
+
+
+def cut_accept_mid_lane(c):
+    """acc_cap inside the accepted hits of a lane that has two or more."""
+    num = compact_reference(c)["num_candidates"]
+    off = np.concatenate([[0], np.cumsum(num)[:-1]])
+    per_lane = np.array([c["accepted"][o : o + n].sum() for o, n in zip(off, num)])
+    two = np.flatnonzero(per_lane >= 2)
+    lane = int(two[len(two) // 2])
+    c["acc_cap"] = int(per_lane[:lane].sum() + per_lane[lane] // 2)
+    return c
+
+
+def compact_full_case(name, cc, NB=None, seed=0):
+    """compact_case with its Myers results (accept_inputs), acc_cap cut
+    mid-lane on `acc_cap_mid_lane`."""
+    c = accept_inputs(compact_case(name, cc, NB, seed), seed)
+    return cut_accept_mid_lane(c) if name == "acc_cap_mid_lane" else c
+
+
+def compact_index(c, device="cpu") -> DeviceIndex:
+    """A DeviceIndex holding what the compactions read of one: case `c`'s
+    chromosome lengths and, on `shard`, its owned ranges."""
+    t = lambda x: None if x is None else torch.from_numpy(np.ascontiguousarray(x)).to(device)
+    z = torch.zeros(1, dtype=torch.int64, device=device)
+    return DeviceIndex(occ=z, lookup=z, freq_table=z.int(), ref_flat=z.byte(), ref_offsets=z,
+                       ref_lengths=t(c["ref_lengths"]), num_occurrences=1,
+                       own_start=t(c["own_start"]), own_end=t(c["own_end"]))
+
+
+def compact_outputs(v, a) -> dict:
+    """A VerifySlab's and an AcceptSlab's tensors under compact_reference's
+    names, as numpy."""
+    out = dict(v_sid=v.sid, v_pos=v.pos, v_lane=v.lane, num_candidates=v.num_candidates,
+               offset=v.offset, total=v.total, a_lane=a.lane, a_sid=a.sid, a_pos=a.pos,
+               a_ed=a.ed, a_end=a.end, n_accepted=a.n_accepted, ok=a.ok)
+    return {k: x.cpu().numpy() for k, x in out.items()}

@@ -21,7 +21,14 @@ from fem_tpu.golden.model import GoldenMapper
 from fem_tpu_torch import kernels, sim
 from fem_tpu_torch.core.encoding import encode
 from fem_tpu_torch.io.fastx import ReadBatch
-from fem_tpu_torch.ops.candidates import candidates_front
+from fem_tpu_torch.ops.candidates import candidates_back, candidates_front
+from fem_tpu_torch.ops.compact import (
+    accept_slab,
+    accept_slab_plain,
+    range_filter,
+    verify_slab,
+    verify_slab_plain,
+)
 from fem_tpu_torch.ops.filter_tail import WORKSPACE_ROWS, filter_tail, filter_tail_plain, plan
 from fem_tpu_torch.ops.hashing import ambiguous_base_counts, reverse_complement, seed_hashes
 from fem_tpu_torch.ops.occ_slab import occ_bound, occ_slab, occ_slab_plain
@@ -30,6 +37,8 @@ from fem_tpu_torch.ops.verify import verify_candidates, verify_candidates_plain
 from fem_tpu_torch.pipeline.engine import EngineConfig, MappingEngine, TierConfig
 from fem_tpu_torch.stats import MappingStats
 from test_torch_cases import (
+    COMPACT_CASE_NAMES,
+    COMPACT_WIDTHS,
     OCC_CASE_NAMES,
     OCC_WIDTHS,
     SWEEP_CAPS,
@@ -38,6 +47,10 @@ from test_torch_cases import (
     TAIL_SHAPE,
     WIDE_CASE_NAMES,
     WIDE_SHAPES,
+    compact_full_case,
+    compact_index,
+    compact_outputs,
+    compact_reference,
     occ_case,
     slot_case,
     tail_cases,
@@ -264,6 +277,122 @@ def test_occ_slab_launches_equal_filter_tail_over_a_stream(cuda, tmp_path):
     assert by_cap == tail
 
 
+def _compactions_equal(cand_sid, cand_pos, lens2, both, index, e, cap, acc_cap):
+    """The verify-slab and accept kernels against the plain version on the
+    same CUDA tensors, one launch each, Myers' kernel between them on
+    `both`, the reads' codes both strands. Returns the plain version's
+    slabs."""
+    CC = cand_sid.shape[1]
+    kernels.reset_launches()
+    got = verify_slab(cand_sid, cand_pos, lens2, index, e, cap)
+    want = verify_slab_plain(cand_sid, cand_pos, lens2, index, e, cap)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    res = verify_candidates(index, got.sid, got.pos, got.lane, both, lens2, e, used=got.total)
+    acc = accept_slab(got, res.accepted, res.edit_distance, res.end_offset, acc_cap, CC)
+    acc_want = accept_slab_plain(want, res.accepted, res.edit_distance, res.end_offset,
+                                 acc_cap)
+    torch.cuda.synchronize()
+    for g, w in zip(acc, acc_want):
+        assert torch.equal(g, w)
+    nb = cand_sid.shape[0]
+    assert kernels.launches_by_shape()["verify_slab"] == {(CC, nb): 1}
+    assert kernels.launches_by_shape()["accept_slab"] == {(CC, nb): 1}
+    return want, acc_want
+
+
+@pytest.mark.parametrize("cc", list(COMPACT_WIDTHS))
+@pytest.mark.parametrize("name", COMPACT_CASE_NAMES)
+def test_compaction_kernels_match_plain(cuda, name, cc):
+    """The cases of tests/test_torch_compact.py at tier 0's, tier 1's and
+    tier 2's cap_cand (a warp a lane, a block of 256, of 1,024): both
+    kernels equal to the plain version and to the rules' loops, zeros
+    past the totals included."""
+    c = compact_full_case(name, cc)
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(cuda)
+    index = compact_index(c, cuda)
+    kernels.reset_launches()
+    v = verify_slab(t(c["cand_sid"]), t(c["cand_pos"]), t(c["lengths"]), index, c["e"],
+                    c["verify_cap"])
+    a = accept_slab(v, t(c["accepted"]), t(c["ed"]), t(c["end"]), c["acc_cap"], cc)
+    torch.cuda.synchronize()
+    assert kernels.launches["verify_slab"] == kernels.launches["accept_slab"] == 1
+    got = compact_outputs(v, a)
+    for k, w in compact_reference(c).items():
+        np.testing.assert_array_equal(got[k], w, err_msg=k)
+    plain_v = verify_slab_plain(t(c["cand_sid"]), t(c["cand_pos"]), t(c["lengths"]), index,
+                                c["e"], c["verify_cap"])
+    plain_a = accept_slab_plain(plain_v, t(c["accepted"]), t(c["ed"]), t(c["end"]),
+                                c["acc_cap"])
+    for g, w in zip(list(v) + list(a), list(plain_v) + list(plain_a)):
+        assert torch.equal(g, w)
+
+
+def _main_path_lists(cuda, tmp_path, cap, reads, index_shards=0):
+    """The filter tail's lists on the card at cap_occ = cap_cand = cap, on
+    a satellite genome (long runs, lanes over their caps): the whole
+    index's, or with `index_shards` a middle cell's of a (1, n) grid (its
+    own bound standing in for the reduced one). Returns (cand_sid,
+    cand_pos, lens2, both, index, e)."""
+    from fem_tpu_torch.config import FemArgs
+    from fem_tpu_torch.index.build import build_index
+    from fem_tpu_torch.io import fastx
+    from fem_tpu_torch.parallel.sharded_index import build_sharded_index
+
+    seqs = sim.satellite_genome(300_000, num_seqs=2, seed=5, satellite_fraction=0.15)
+    sim.write_fasta(str(tmp_path / "ref.fa"), seqs)
+    ref = fastx.read_fasta(str(tmp_path / "ref.fa"))
+    host_index = build_index(ref, 12, 3)
+    if index_shards:
+        index = build_sharded_index(host_index, ref, index_shards).device_index(
+            index_shards // 2, cuda)
+    else:
+        index = device_index_from_host(host_index, ref, cuda)
+    batch = _batch(sim.simulate_reads(seqs, reads, read_length=100, max_errors=5, seed=6))
+    args = FemArgs(error_threshold=5, num_additional_qgrams=1)
+    params = FilterParams.from_args(args, batch.codes.shape[1], cap_occ=cap, cap_cand=cap)
+    codes = torch.from_numpy(batch.codes).to(cuda)
+    lengths = torch.from_numpy(batch.lengths).to(cuda)
+    both = torch.cat([codes, reverse_complement(codes, lengths)])
+    lens2 = torch.cat([lengths, lengths])
+    hashes = seed_hashes(both, params.kmer_size)
+    amb = ambiguous_base_counts(both, lens2, params.kmer_size)
+    front = candidates_front(both, lens2, hashes, amb, index, params)
+    tail = candidates_back(front, front.tkey, index, params)
+    return tail.cand_sid, tail.cand_pos, lens2, both, index, 5
+
+
+@pytest.mark.parametrize("tier,cap,reads", [(0, 256, 256), (1, 2048, 256), (2, 16384, 64)])
+def test_compaction_kernels_on_the_main_paths_lists(cuda, tmp_path, tier, cap, reads):
+    """The lists the filter tail writes on the card at each tier's width,
+    through both kernels, with Myers between: equal to the plain version,
+    with a verify cap that fits them all and one that cuts them, and an
+    accept cap cut likewise."""
+    cand_sid, cand_pos, lens2, both, index, e = _main_path_lists(cuda, tmp_path, cap, reads)
+    total = int(range_filter(cand_sid, cand_pos, lens2, index, e)[2].sum())
+    assert total > 0
+    _, a = _compactions_equal(cand_sid, cand_pos, lens2, both, index, e, total + 5, total)
+    assert a.ok.all() and 0 < int(a.n_accepted) <= total
+    v, a = _compactions_equal(cand_sid, cand_pos, lens2, both, index, e, total // 2,
+                              max(total // 8, 8))
+    assert not v.num_candidates.eq(0).all() and a.ok.any() and not a.ok.all()
+
+
+def test_compaction_kernels_on_an_index_grid_cell(cuda, tmp_path):
+    """A middle cell of a (1, 4) grid on one card: the ownership predicate
+    of its shard, at the cell's quarter of the verify slots."""
+    cand_sid, cand_pos, lens2, both, index, e = _main_path_lists(cuda, tmp_path, 256, 256,
+                                                                 index_shards=4)
+    assert index.own_start is not None
+    nb = cand_sid.shape[0]
+    v, _ = _compactions_equal(cand_sid, cand_pos, lens2, both, index, e, 16 * nb // 4,
+                              max(4 * nb // 4, 8))
+    kept = v.pos[: int(v.total)].long() + e
+    sid = v.sid[: int(v.total)].long()
+    assert len(kept) > 0
+    assert ((kept >= index.own_start[sid]) & (kept < index.own_end[sid])).all()
+
+
 @pytest.mark.parametrize("e", [0, 2, 5, 7])
 def test_myers_kernel_matches_plain(cuda, small_reference, small_index, e):
     """Reads copied from the reference with edits, plus out-of-range sids,
@@ -351,10 +480,13 @@ def test_engine_on_cuda_matches_golden(cuda, small_reference, small_index, defau
         recs, stats = engine.map_batch(batch)
         assert b"".join(recs) == b"".join(grecs)
         assert dataclasses.asdict(stats) == dataclasses.asdict(gstats)
-        assert kernels.launches == {"banded_myers": 1, "filter_tail": 1, "occ_slab": 1}
+        assert kernels.launches == {"banded_myers": 1, "filter_tail": 1, "occ_slab": 1,
+                                    "verify_slab": 1, "accept_slab": 1}
     prog = engine.programs[0, 128]
     assert prog.captured and prog.replays == 1
-    assert kernels.launches_by_shape()["banded_myers"] == {(64 * 2 * 4, 128): 1}
+    shapes = kernels.launches_by_shape()
+    assert shapes["banded_myers"] == {(64 * 2 * 4, 128): 1}
+    assert shapes["verify_slab"] == shapes["accept_slab"] == {(16, 128): 1}
 
 
 def test_eager_step_on_cuda_equals_graph(cuda, small_reference, small_index, default_args):
@@ -510,7 +642,8 @@ def test_grid_program_on_cuda_replays(cuda, small_reference, small_index, defaul
     # An index grid's cell writes its slab in two launches around the
     # bound's reduction over the shards, a whole index's in one.
     assert kernels.launches == {"filter_tail": 2 * len(devs), "banded_myers": 2 * len(devs),
-                                "occ_slab": 2 * len(devs) * (1 if grid == "data_2" else 2)}
+                                "occ_slab": 2 * len(devs) * (1 if grid == "data_2" else 2),
+                                "verify_slab": 2 * len(devs), "accept_slab": 2 * len(devs)}
     engine.eager_step = True
     assert [engine.map_batch(b) for b in (full, short)] == want
     assert prog.replays == 3

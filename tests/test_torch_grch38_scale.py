@@ -76,7 +76,8 @@ def test_stages_pass_and_report(scale):
         assert st["records_equal"] and st["counters_equal"] and st["golden_equal"]
         assert st["counters"][0] == 300 and st["records"] == st["counters"][4] > 0
         assert st["launches_by_shape"] == {"filter_tail": {}, "banded_myers": {},
-                                           "occ_slab": {}}  # CPU
+                                           "occ_slab": {}, "verify_slab": {},
+                                           "accept_slab": {}}  # CPU
         assert st["rss_bytes"] > 0 and st["seconds"] > 0
     cells = stages["map_grid"]["cells"]
     assert [c["cell"] for c in cells] == [[0, 0], [0, 1]]
@@ -193,7 +194,9 @@ def test_a_map_without_kernel_launches_exits_1(scale, tmp_path, monkeypatch, cap
     assert not mod.kernels_launched({"filter_tail": 3})
     assert not mod.kernels_launched({"filter_tail": 3, "banded_myers": 0})
     assert not mod.kernels_launched({"filter_tail": 3, "banded_myers": 1})
-    assert mod.kernels_launched({"filter_tail": 3, "banded_myers": 1, "occ_slab": 3})
+    assert not mod.kernels_launched({"filter_tail": 3, "banded_myers": 1, "occ_slab": 3})
+    assert mod.kernels_launched({"filter_tail": 3, "banded_myers": 1, "occ_slab": 3,
+                                 "verify_slab": 3, "accept_slab": 3})
     real_port = mod.Runner.port
 
     def port(self, tag, *args, env=None):

@@ -189,20 +189,23 @@ def test_launch_counts_of_warm_up_capture_and_replays():
     _stand_in_body(calls)  # warm-up
     with kernels.recording_launches() as recorded:  # capture
         _stand_in_body(calls)
-    assert kernels.launches == {"filter_tail": 2, "banded_myers": 1, "occ_slab": 0}
+    assert kernels.launches == {"filter_tail": 2, "banded_myers": 1, "occ_slab": 0,
+                                "verify_slab": 0, "accept_slab": 0}
     assert recorded == collections.Counter({("filter_tail", (80, 16)): 1,
                                             ("banded_myers", (64, 32)): 1,
                                             ("filter_tail", (640, 512)): 1})
     for _ in range(3):  # replays
         kernels.add_launches(recorded)
     assert len(calls) == 2  # a replay runs no wrapper
-    assert kernels.launches == {"filter_tail": 8, "banded_myers": 4, "occ_slab": 0}
+    assert kernels.launches == {"filter_tail": 8, "banded_myers": 4, "occ_slab": 0,
+                                "verify_slab": 0, "accept_slab": 0}
     assert kernels.launches_by_shape() == {
         "filter_tail": {(80, 16): 4, (640, 512): 4}, "banded_myers": {(64, 32): 4},
-        "occ_slab": {}}
+        "occ_slab": {}, "verify_slab": {}, "accept_slab": {}}
     # Outside the capture a wrapper counts again.
     _stand_in_body(calls)
-    assert kernels.launches == {"filter_tail": 10, "banded_myers": 5, "occ_slab": 0}
+    assert kernels.launches == {"filter_tail": 10, "banded_myers": 5, "occ_slab": 0,
+                                "verify_slab": 0, "accept_slab": 0}
     kernels.reset_launches()
 
 
@@ -223,7 +226,8 @@ def test_recording_is_per_thread():
         release.wait(10)
         kernels.count_launch("filter_tail", (8, 8))
     t.join()
-    assert kernels.launches == {"filter_tail": 0, "banded_myers": 1, "occ_slab": 0}
+    assert kernels.launches == {"filter_tail": 0, "banded_myers": 1, "occ_slab": 0,
+                                "verify_slab": 0, "accept_slab": 0}
     assert recorded == collections.Counter({("filter_tail", (8, 8)): 1})
     kernels.reset_launches()
 

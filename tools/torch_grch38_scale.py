@@ -82,7 +82,7 @@ REPEAT_SHARE = 0.2
 READ_SEED = 77
 READ_LENGTH = 100
 E, A, K, STEP = 5, 1, 12, 3
-KERNELS = ("filter_tail", "banded_myers", "occ_slab")
+KERNELS = ("filter_tail", "banded_myers", "occ_slab", "verify_slab", "accept_slab")
 COUNTER_NAMES = ("reads", "mapped reads", "candidates before the additional q-gram filter",
                  "candidates", "mappings")
 
